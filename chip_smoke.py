@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -7,20 +7,27 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 0. the card's name and power limit (`nvidia-smi`), the torch version;
    raises when no CUDA device is visible;
 1. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, sm_90a);
-2. hold each kernel against its plain PyTorch version on the card,
-   bit-exact, at the CPU-test shapes and the main path's shapes, and time
-   both (CUDA events, median of 20) beside the least time the card could
-   take for the same work;
-3. the main path at full size: the repair-demo scenario (RS(6,3) on the
-   Aliyun Table III matrix under markov churn, 128 MB chunks) planned and
-   simulated for every single-failure scheme, a 128 MiB-per-block stripe
-   encoded on the card, the BMF plan's repair executed through the
-   kernels and verified byte-exact; the kernels' launch counters are set
-   to 0 just before and read just after;
-   then one more repair is traced with torch.profiler (device time by
-   kernel, the device's idle share);
+2. hold each of the four kernels against its plain PyTorch version on the
+   card, bit-exact, at the CPU-test shapes and the main paths' shapes, and
+   time both (CUDA events, median of 20) beside the least time the card
+   could take for the same work and, where one exists, one PyTorch call
+   computing the same function (`library_ms`);
+3. the serial repair path at full size: the repair-demo scenario (RS(6,3)
+   on the Aliyun Table III matrix under markov churn, 128 MB chunks)
+   planned and simulated for every single-failure scheme, a 128 MiB-per-
+   block stripe encoded on the card, the BMF plan's repair executed
+   through the kernels and verified byte-exact; the kernels' launch
+   counters are set to 0 just before and read just after; then one more
+   repair is traced with torch.profiler (device time by kernel, the
+   device's idle share);
 4. small-input checks: every scheme's plan executed on the card equals the
-   CPU plain path byte for byte and verifies.
+   CPU plain path byte for byte and verifies, serially and as one mixed
+   batch (all 8 schemes, failures (0,) and (0, 4), 4099 bytes);
+5. the batched data plane at full size: B=4 stripes of 3 x 128 MiB, one
+   plan each (traditional, PPR, BMF, PPT), repaired by one
+   `execute_plans_batch` call on the card and verified; counters set to 0
+   just before and read just after; wall time (first call, median of 5),
+   peak device memory, and one torch.profiler trace.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -42,20 +49,28 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import executor, topology  # noqa: E402
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel  # noqa: E402
-from repro_torch.core.simulator import (MULTI_SCHEMES, RepairSimulator,  # noqa: E402
-                                        Scenario)
+from repro_torch.core.engine import dataplane  # noqa: E402
+from repro_torch.core.engine.arrays import compile_plan, decompile  # noqa: E402
+from repro_torch.core.ppt import build_ppt_tree, ppt_round_plan  # noqa: E402
+from repro_torch.core.simulator import (MULTI_SCHEMES, SINGLE_SCHEMES,  # noqa: E402
+                                        RepairSimulator, Scenario)
 from repro_torch.ec import bitplane, gf256  # noqa: E402
 from repro_torch.ec.rs import RSCode  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import load_library  # noqa: E402
-from repro_torch.kernels.gf256_matmul import gf256_matmul_planes  # noqa: E402
-from repro_torch.kernels.xor_reduce import xor_reduce_words  # noqa: E402
+from repro_torch.kernels.gf256_matmul import (gf256_matmul_planes,  # noqa: E402
+                                              gf256_scale_planes)
+from repro_torch.kernels.xor_reduce import (xor_reduce_groups_words,  # noqa: E402
+                                            xor_reduce_words)
 
 MIB = 1 << 20
 BLOCK_BYTES = 128 * MIB            # the paper's 128 MB chunk; HDFS block size
 W_PLANES = BLOCK_BYTES // 32       # plane words per 128 MiB block
 W_WORDS = BLOCK_BYTES // 4         # 32-bit words per 128 MiB block
 REPS = 20
+HEAD = 4 * MIB                     # bytes compared with the host's copy
+BATCH = 4                          # phase 5: stripes in one batched repair
+BATCH_SCHEMES = ("traditional", "ppr", "bmf", "ppt")
 
 KERNELS = {
     "gf256_matmul_planes": dict(
@@ -64,7 +79,17 @@ KERNELS = {
     "xor_reduce_words": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/xor_reduce.cu",
         replaces="src/repro/kernels/xor_reduce.py:26"),
+    "gf256_scale_planes": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/gf256_matmul.cu",
+        replaces="src/repro/kernels/gf256_matmul.py:74"),
+    "xor_reduce_groups_words": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/xor_reduce.cu",
+        replaces="src/repro/kernels/xor_reduce.py:54"),
 }
+WRAPPERS = {"gf256_matmul_planes": gf256_matmul_planes,
+            "xor_reduce_words": xor_reduce_words,
+            "gf256_scale_planes": gf256_scale_planes,
+            "xor_reduce_groups_words": xor_reduce_groups_words}
 
 
 def nvidia_smi(query: str) -> str:
@@ -124,6 +149,31 @@ def random_words(rng: np.random.Generator, shape) -> torch.Tensor:
     return torch.from_numpy(host).cuda()
 
 
+def device_bytes(seed: int, shape) -> torch.Tensor:
+    """Random uint8 bytes made on the card from a seeded generator (the
+    full-size inputs: several GiB, too slow to draw on the host)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                         generator=gen)
+
+
+def device_words(seed: int, shape) -> torch.Tensor:
+    shape = tuple(shape)
+    return device_bytes(seed, shape[:-1] + (4 * shape[-1],)).view(torch.int32)
+
+
+def table_gather_ms(coeffs: np.ndarray, data: torch.Tensor) -> tuple[float, torch.Tensor]:
+    """The one-call yardstick of the byte-level premultiply: a `MUL_TABLE`
+    gather, row i of `data` through table row `coeffs[i]` (the int32 index
+    copy of the bytes is made before the clock starts). Never used by the
+    port."""
+    table = gf256.mul_table(data.device)
+    rows = torch.from_numpy(coeffs.astype(np.int64)).cuda()[:, None]
+    index = data.int()
+    ms = cuda_ms(lambda: table[rows, index])
+    return ms, table[rows, index]
+
+
 def check_gf256(rng, peaks, m, k, w, timed):
     coeff = rng.integers(0, 256, size=(m, k), dtype=np.uint8)
     coeff.flat[0] = 1                   # coefficients 1 and 0 take part too
@@ -148,6 +198,88 @@ def check_gf256(rng, peaks, m, k, w, timed):
                        lambda: ref.gf256_matmul_planes_ref(masks, planes)),
                    bound_ms=bms, bound_by=by, library_ms=None,
                    bytes=nbytes, lop3_ops=lop3)
+        if (m, k) == (1, 1):   # the premultiply: one table gather of 128 MiB
+            data = device_bytes(11, (1, 32 * w))
+            rec["library_ms"], _ = table_gather_ms(coeff[:, 0], data)
+            del data
+    return rec
+
+
+def check_scale(rng, peaks, m, w, timed):
+    coeffs = rng.integers(0, 256, size=m, dtype=np.uint8)
+    coeffs[0] = 1                      # coefficients 1 and 0 take part too
+    if m > 1:
+        coeffs[1] = 0
+    masks = bitplane.coeff_to_masks(coeffs[:, None], "cuda")
+    planes = device_words(int(rng.integers(1 << 30)), (m, 8, w))
+    got = gf256_scale_planes(masks, planes)
+    torch.cuda.synchronize()
+    want = ref.gf256_scale_planes_ref(masks, planes)
+    torch.cuda.synchronize()
+    rec = dict(kernel="gf256_scale_planes", shape=f"M={m} W={w}",
+               max_abs_err=max_abs_err(got, want))
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"gf256_scale_planes disagrees: {rec}")
+    del got, want
+    if timed:
+        nbytes = 2 * m * 32 * w + masks.numel() * 4
+        lop3 = 64 * m * w
+        bms, by = bound(nbytes, lop3, peaks)
+        rec.update(ms=cuda_ms(lambda: gf256_scale_planes(masks, planes)),
+                   plain_ms=cuda_ms(
+                       lambda: ref.gf256_scale_planes_ref(masks, planes)),
+                   bound_ms=bms, bound_by=by, bytes=nbytes, lop3_ops=lop3)
+        del planes
+        torch.cuda.empty_cache()
+        # the byte-level entry point (pack, kernel, unpack) on M chunks of
+        # 32 * W bytes, against the one-call table gather on the same bytes
+        data = device_bytes(12, (m, 32 * w))
+        rec["ops_gf256_scale_batch_ms"] = cuda_ms(
+            lambda: ops.gf256_scale_batch(coeffs, data), reps=5)
+        by_op = ops.gf256_scale_batch(coeffs, data)
+        torch.cuda.empty_cache()
+        rec["library_ms"], by_table = table_gather_ms(coeffs, data)
+        if not torch.equal(by_op, by_table):
+            raise AssertionError("ops.gf256_scale_batch != MUL_TABLE gather")
+        del data, by_op, by_table
+        torch.cuda.empty_cache()
+    return rec
+
+
+def check_groups(peaks, words, table, timed, label):
+    """`xor_reduce_groups_words` on (T, W) words with a (G, Kmax) index
+    table (or, with `table=None`, on (G, K, W) words) against its plain
+    version; bound: each referenced row read once, each output written."""
+    index = None if table is None else torch.from_numpy(table).cuda()
+    got = xor_reduce_groups_words(words, table)
+    torch.cuda.synchronize()
+    want = ref.xor_reduce_groups_words_ref(words, index)
+    torch.cuda.synchronize()
+    rec = dict(kernel="xor_reduce_groups_words", shape=label,
+               max_abs_err=max_abs_err(got, want))
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"xor_reduce_groups_words disagrees: {rec}")
+    if timed:
+        w = words.shape[-1]
+        if table is None:
+            g, k = words.shape[0], words.shape[1]
+            rows, entries = g * k, g * k
+        else:
+            g = table.shape[0]
+            live = table[table >= 0]
+            rows, entries = np.unique(live).size, live.size
+        nbytes = 4 * w * (rows + g)
+        bms, by = bound(nbytes, max(entries - g, 0) * w, peaks)
+        rec.update(ms=cuda_ms(lambda: xor_reduce_groups_words(words, table)),
+                   plain_ms=cuda_ms(
+                       lambda: ref.xor_reduce_groups_words_ref(words, index)),
+                   bound_ms=bms, bound_by=by, bytes=nbytes,
+                   rows_read=rows, groups=g)
+        if table is None and words.shape[1] == 2:   # the one-call yardstick
+            rec["library_ms"] = cuda_ms(
+                lambda: torch.bitwise_xor(words[:, 0], words[:, 1]))
+        else:
+            rec["library_ms"] = None
     return rec
 
 
@@ -175,6 +307,15 @@ def check_xor(rng, peaks, k, w, timed):
     return rec
 
 
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
 def demo_scenario(failed=(0,)) -> tuple:
     cluster, bw = topology.aliyun_matrix()
     code = RSCode(6, 3)
@@ -187,12 +328,13 @@ def demo_scenario(failed=(0,)) -> tuple:
 
 # device kernels grouped under short labels: the port's own kernels, then
 # the plain-torch ops of the bit-slicing around them
-KERNEL_LABELS = ("gf256_matmul_planes", "xor_reduce_words", "sum_functor",
+KERNEL_LABELS = ("gf256_matmul_planes", "xor_reduce_words",
+                 "gf256_scale_planes", "xor_reduce_groups", "sum_functor",
                  "lshift", "rshift", "BitwiseAndFunctor", "BitwiseOrFunctor",
                  "BitwiseXorFunctor", "copy", "Fill", "CatArray", "index")
 
 
-def profile_repair(repair) -> dict:
+def profile_repair(repair, phase: str = "profile_repair") -> dict:
     """One repair under torch.profiler: device kernel time by label, and the
     device's idle share of the repair's wall time (one stream: kernels do
     not overlap, so busy time is their sum)."""
@@ -213,7 +355,7 @@ def profile_repair(repair) -> dict:
     busy_ms = sum(by_label.values())
     if busy_ms <= 0:
         raise AssertionError("profiled repair shows no device time")
-    rec = dict(phase="profile_repair", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    rec = dict(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / wall_ms,
                device_ms_by_label=dict(sorted(by_label.items(),
                                               key=lambda kv: -kv[1])))
@@ -246,8 +388,7 @@ def main_path(records: list) -> dict:
     data = torch.from_numpy(data_np).cuda()
     torch.cuda.synchronize()
 
-    gf256_matmul_planes.launches = 0
-    xor_reduce_words.launches = 0
+    reset_launches()
     tic = time.perf_counter()
     codeword = code.encode(data)
     torch.cuda.synchronize()
@@ -256,8 +397,7 @@ def main_path(records: list) -> dict:
     ex = executor.execute_plan(bmf.plan, code, codeword, device="cuda")
     torch.cuda.synchronize()
     repair_s = time.perf_counter() - tic
-    launches = {"gf256_matmul_planes": gf256_matmul_planes.launches,
-                "xor_reduce_words": xor_reduce_words.launches}
+    launches = read_launches()
 
     head = 4 * MIB
     want_parity = gf256.gf_matmul_np(code.generator[code.k:],
@@ -271,8 +411,8 @@ def main_path(records: list) -> dict:
         raise AssertionError(f"BMF repair not verified: {ex.verified}")
     if not np.array_equal(lost[:head].cpu().numpy(), data_np[0, :head]):
         raise AssertionError("repaired block (first 4 MiB) != lost data")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("gf256_matmul_planes", "xor_reduce_words"):
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
 
     def repair():
@@ -323,9 +463,124 @@ def small_checks(records: list) -> None:
                     and on_gpu.bytes_moved == on_cpu.bytes_moved):
                 raise AssertionError(f"{scheme} failed={failed}: card and "
                                      "CPU repairs disagree")
-    rec = dict(phase="small_checks", ok=True)
+    # one mixed batch: all 8 schemes under both failure patterns
+    plans, cws = [], []
+    for failed in ((0,), (0, 4)):
+        _, code, sc = demo_scenario(failed)
+        for scheme in SINGLE_SCHEMES + MULTI_SCHEMES:
+            plans.append(scheme_plan(sc, scheme))
+            cws.append(code.encode(torch.from_numpy(
+                rng.integers(0, 256, size=(code.k, 4099), dtype=np.uint8))))
+    code = RSCode(6, 3)
+    on_cpu = dataplane.execute_plans_batch(plans, code, cws, device="cpu")
+    on_gpu = dataplane.execute_plans_batch(
+        plans, code, [cw.cuda() for cw in cws], device="cuda")
+    same = all(torch.equal(on_gpu.reconstructed[b][j].cpu(), blk)
+               for b, rec in enumerate(on_cpu.reconstructed)
+               for j, blk in rec.items())
+    if not (on_gpu.all_verified and on_cpu.all_verified and same
+            and np.array_equal(on_gpu.bytes_moved, on_cpu.bytes_moved)):
+        raise AssertionError("mixed batch: card and CPU plain path disagree")
+    rec = dict(phase="small_checks", ok=True, mixed_batch_cases=len(plans))
     print(json.dumps(rec))
     records.append(rec)
+
+
+def scheme_plan(sc, scheme: str):
+    """The executed plan of one scheme; PPT plans a pipeline tree, whose
+    bytes move through its store-and-forward lowering `ppt_round_plan`."""
+    if scheme == "ppt":
+        return ppt_round_plan(build_ppt_tree(sc.make_jobs()[0],
+                                             sc.bw.matrix_at(0.0)))
+    return RepairSimulator(sc).run(scheme).plan
+
+
+def batch_layout():
+    """Phase 5's plans (one per stripe), compiled, with the batch's
+    round tables as `execute_plans_batch` lowers them on the host."""
+    _, code, sc = demo_scenario()
+    plans = [compile_plan(scheme_plan(sc, s)) for s in BATCH_SCHEMES]
+    n_nodes = max(pa.num_nodes for pa in plans)
+    slots = max(pa.num_jobs for pa in plans) * n_nodes
+    _, steps, _ = dataplane._schedule(plans, n_nodes, slots)
+    return code, plans, slots, steps
+
+
+def batched_path(records: list) -> dict:
+    """Phase 5: B=4 stripes of 3 x 128 MiB, one plan each, repaired by
+    one `execute_plans_batch` call on the card."""
+    code, plans, slots, steps = batch_layout()
+    rng = np.random.default_rng(5)
+    heads, cws = [], []
+    for _ in range(BATCH):
+        data = np.frombuffer(bytearray(rng.bytes(code.k * BLOCK_BYTES)),
+                             dtype=np.uint8).reshape(code.k, BLOCK_BYTES)
+        heads.append(data[0, :HEAD].copy())
+        cws.append(code.encode(torch.from_numpy(data).cuda()))
+        del data
+    torch.cuda.synchronize()
+    serial_moved = []
+    for pa, cw in zip(plans, cws):
+        ex = executor.execute_plan(decompile(pa), code, cw, device="cuda")
+        if not ex.verified:
+            raise AssertionError("serial repair of a batch plan not verified")
+        serial_moved.append(ex.bytes_moved)
+        del ex
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def run():
+        return dataplane.execute_plans_batch(plans, code, cws, device="cuda")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - tic
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    if not res.all_verified:
+        raise AssertionError(f"batched repair not verified: {res.verified}")
+    for b, rec in enumerate(res.reconstructed):
+        lost = rec[0]
+        if not (lost.is_cuda and lost.shape == (BLOCK_BYTES,)
+                and np.array_equal(lost[:HEAD].cpu().numpy(), heads[b])):
+            raise AssertionError(f"case {b}: repaired block != lost data")
+    if res.bytes_moved.tolist() != serial_moved:
+        raise AssertionError(f"bytes_moved {res.bytes_moved.tolist()} != "
+                             f"serial {serial_moved}")
+    want = {"gf256_matmul_planes": 0, "xor_reduce_words": 0,
+            "gf256_scale_planes": 1, "xor_reduce_groups_words": len(steps)}
+    if launches != want:
+        raise AssertionError(f"batched path launches {launches} != {want}")
+    del res, lost
+    steady = []
+    for _ in range(5):
+        tic = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - tic)
+    rec = dict(phase="batched_path", stripes=BATCH, schemes=BATCH_SCHEMES,
+               block_bytes=BLOCK_BYTES, all_verified=True,
+               bytes_moved=serial_moved, rounds=len(steps),
+               groups_per_round=[int(s.groups.shape[0]) for s in steps],
+               kmax_per_round=[int(s.groups.shape[1]) for s in steps],
+               wall_s_first=first_s, wall_s_median_of_5=statistics.median(steady),
+               wall_s_all=steady, max_memory_allocated=peak,
+               launches=launches)
+    print(json.dumps(rec))
+    records.append(rec)
+
+    def traced():
+        run()
+        torch.cuda.synchronize()
+
+    records.append(profile_repair(traced, phase="profile_batched_path"))
+    del cws
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -374,11 +629,54 @@ def main() -> None:
     records.append(rec)
     timed["xor_reduce_words"] = rec
     torch.cuda.empty_cache()
+
+    # the batched data plane's kernels: CPU-test shapes, then full width
+    for m in (1, 5):
+        for w in (1, 513):
+            records.append(check_scale(rng, peaks, m, w, timed=False))
+    tables = (np.array([[0, 1, 2, -1], [3, -1, -1, -1], [4, 5, -1, -1],
+                        [6, 2, 0, 1], [-1, -1, -1, -1]]),   # ragged, K=1, repeats
+              np.array([[5], [5], [0]]))                     # K=1 only
+    for w in (1, 513, 1024):
+        words = device_words(int(rng.integers(1 << 30)), (7, w))
+        for table in tables:
+            records.append(check_groups(peaks, words, table, False,
+                                        f"T=7 G={table.shape[0]} W={w}"))
+        records.append(check_groups(peaks, words.reshape(7, 1, w), None,
+                                    False, f"dense G=7 K=1 W={w}"))
+    rec = check_scale(rng, peaks, 3 * BATCH, W_PLANES, timed=True)
+    print(json.dumps(rec))
+    records.append(rec)
+    timed["gf256_scale_planes"] = rec
+    _, _, slots, steps = batch_layout()
+    big = max(steps, key=lambda s: int((s.groups >= 0).sum()))
+    words = device_words(13, (BATCH * slots, W_WORDS))
+    rec = check_groups(peaks, words, big.groups, True,
+                       f"largest batch round: T={BATCH * slots} "
+                       f"G={big.groups.shape[0]} Kmax={big.groups.shape[1]} "
+                       f"W={W_WORDS}")
+    print(json.dumps(rec))
+    records.append(rec)
+    del words
+    torch.cuda.empty_cache()
+    words = device_words(14, (4, 2, W_WORDS))
+    rec = check_groups(peaks, words, None, True, f"dense G=4 K=2 W={W_WORDS}")
+    print(json.dumps(rec))
+    records.append(rec)
+    timed["xor_reduce_groups_words"] = rec
+    del words
+    torch.cuda.empty_cache()
     for rec in records[1:]:
         errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
 
-    launches = main_path(records)
+    serial_launches = main_path(records)
     small_checks(records)
+    batch_launches = batched_path(records)
+    # each kernel's launches on the path that runs it (a new dict: the
+    # phases' records keep their own counts)
+    launches = {**serial_launches,
+                **{k: batch_launches[k] for k in ("gf256_scale_planes",
+                                                  "xor_reduce_groups_words")}}
 
     kernels = []
     for kname, meta in KERNELS.items():

@@ -2,14 +2,19 @@
 
 The state the two packages share is the stripe bytes, the RS generator
 (a pure function of (n, k), rebuilt identically by `ec.rs`) and the repair
-plans. `plan_from_reference` reads a reference `RepairPlan` by attribute
-(duck-typed: this module imports nothing of the reference package).
+plans. `plan_from_reference` reads a reference `RepairPlan` and
+`plan_arrays_from_reference` a reference compiled `PlanArrays`, both by
+attribute (duck-typed: this module imports nothing of the reference
+package).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine.arrays import PlanArrays
 from repro_torch.core.plan import Job, RepairPlan, Round, Transfer
 from repro_torch.device import resolve_device
 
@@ -27,6 +32,22 @@ def plan_from_reference(plan) -> RepairPlan:
                  path=tuple(int(x) for x in t.path))
         for t in rnd.transfers]) for rnd in plan.rounds]
     return RepairPlan(jobs=jobs, rounds=rounds, meta=dict(plan.meta))
+
+
+def plan_arrays_from_reference(pa) -> PlanArrays:
+    """Rebuild a reference `PlanArrays` as the port's: every field array
+    copied (numpy, same dtypes), `num_nodes` and `meta` carried over."""
+    fields = {}
+    for f in dataclasses.fields(PlanArrays):
+        value = getattr(pa, f.name)
+        if isinstance(value, np.ndarray):
+            value = value.copy()
+        elif f.name == "meta":
+            value = dict(value)
+        else:
+            value = int(value)
+        fields[f.name] = value
+    return PlanArrays(**fields)
 
 
 def codeword_to_device(np_codeword: np.ndarray, device=None) -> torch.Tensor:

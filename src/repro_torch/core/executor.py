@@ -20,8 +20,10 @@ simulates, so every simulator-produced plan satisfies this by construction.
 re-sends the whole chunk on every hop, so a path of length L moves
 `(L - 1) * nbytes` bytes (store-and-forward, no computation at relays).
 
-The reference's batched executor (`execute_plans_batch`, its
-`core/engine/dataplane.py`) is not ported yet.
+The batched engine (`execute_plans_batch`, one premultiply launch per
+batch and one fold launch per round for a whole batch of compiled plans)
+lives in `core/engine/dataplane.py` and is re-exported here, with
+`BatchExecutionResult` and `identity_block_map`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -30,14 +32,19 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.engine.dataplane import (BatchExecutionResult,
+                                              execute_plans_batch,
+                                              identity_block_map)
 from repro_torch.core.plan import RepairPlan
 from repro_torch.device import resolve_device
 from repro_torch.ec.rs import RSCode
 from repro_torch.kernels import ops
 
 __all__ = [
+    "BatchExecutionResult",
     "ExecutionResult",
     "execute_plan",
+    "execute_plans_batch",
     "identity_block_map",
 ]
 
@@ -47,13 +54,6 @@ class ExecutionResult:
     reconstructed: dict[int, torch.Tensor]  # job_id -> (nbytes,) uint8 bytes
     verified: bool
     bytes_moved: int
-
-
-def identity_block_map(num_nodes: int, n: int) -> np.ndarray:
-    """The simulator's placement: node i holds block i (i < n), -1 after."""
-    out = np.full(max(num_nodes, n), -1, dtype=np.int64)
-    out[:n] = np.arange(n)
-    return out
 
 
 def execute_plan(

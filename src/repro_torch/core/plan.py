@@ -111,6 +111,11 @@ class FragmentState:
         return all(self.job_done(j) for j in self.jobs)
 
 
+# below this many transfers the object walk beats array compilation; the
+# array fast path pays off on large (batched / machine-generated) plans
+_FAST_VALIDATE_MIN_TRANSFERS = 64
+
+
 def validate_plan(plan: RepairPlan, *, max_recv_per_round: int = 1,
                   fast: bool | None = None) -> None:
     """Structural invariants from the paper's constraints.
@@ -122,17 +127,29 @@ def validate_plan(plan: RepairPlan, *, max_recv_per_round: int = 1,
     * relays are used at most once per round and are not senders/receivers,
     * after the last round every job's requestor holds the full term set.
 
-    Every plan takes the object walk below (`fast=None` or `False`). The
-    reference's array fast path for large plans enforces the same
-    invariants; it needs the compiled `PlanArrays` IR
-    (`core/engine/arrays.py` in full), which the port does not have yet, so
-    `fast=True` raises `NotImplementedError`.
+    Large plans take the array fast path (whole-plan bincount role checks
+    + uint64 term-bitmask bookkeeping, see
+    `repro_torch.core.engine.arrays.validate_plan_arrays`); small plans,
+    plans that cannot be lowered (helper/term ids >= 64), and `fast=False`
+    use the object walk below. Both paths enforce identical invariants.
+    Callers that already hold compiled `PlanArrays` should call
+    `validate_plan_arrays` directly and skip the re-compile.
     """
+    if fast is None:
+        fast = (sum(len(r.transfers) for r in plan.rounds)
+                >= _FAST_VALIDATE_MIN_TRANSFERS)
     if fast:
-        raise NotImplementedError(
-            "validate_plan(fast=True) needs the compiled PlanArrays IR "
-            "(core/engine/arrays.py compile_plan / validate_plan_arrays), "
-            "which is not ported yet: it lands with the batched engine slice")
+        from repro_torch.core.engine.arrays import (UnsupportedPlanError,
+                                                    compile_plan,
+                                                    validate_plan_arrays)
+
+        try:
+            arrays = compile_plan(plan)
+        except UnsupportedPlanError:
+            pass
+        else:
+            validate_plan_arrays(arrays, max_recv_per_round=max_recv_per_round)
+            return
     state = FragmentState(plan.jobs)
     for rnd in plan.rounds:
         send_count: dict[int, int] = defaultdict(int)

@@ -59,3 +59,46 @@ def gf256_matmul_planes(masks: torch.Tensor, planes: torch.Tensor) -> torch.Tens
 
 
 gf256_matmul_planes.launches = 0
+
+
+def gf256_scale_planes(masks: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """(M,1,8,8) int32 masks x (M,8,W) int32 planes -> (M,8,W) int32 planes.
+
+    The batched premultiply: row r is scaled by its *own* coefficient mask
+    (elementwise over rows, not an (m, k) contraction). A CUDA tensor
+    launches the kernel in `csrc/gf256_matmul.cu`; a CPU tensor takes
+    `ref.gf256_scale_planes_ref`. Each CUDA launch adds one to
+    `gf256_scale_planes.launches`.
+    """
+    if masks.dtype != torch.int32 or planes.dtype != torch.int32:
+        raise TypeError(f"int32 masks and planes expected, got "
+                        f"{masks.dtype}, {planes.dtype}")
+    if masks.dim() != 4 or masks.shape[1:] != (1, 8, 8):
+        raise ValueError(f"masks must be (M, 1, 8, 8), got {tuple(masks.shape)}")
+    m = masks.shape[0]
+    if planes.dim() != 3 or planes.shape[:2] != (m, 8):
+        raise ValueError(f"planes must be (M={m}, 8, W), got "
+                         f"{tuple(planes.shape)}")
+    if masks.device != planes.device:
+        raise ValueError(f"masks on {masks.device}, planes on {planes.device}")
+    if planes.device.type == "cpu":
+        return ref.gf256_scale_planes_ref(masks, planes)
+    if planes.device.type != "cuda":
+        raise ValueError(f"no kernel for device {planes.device}")
+    if not (masks.is_contiguous() and planes.is_contiguous()):
+        raise ValueError("masks and planes must be contiguous")
+    w = planes.shape[2]
+    out = torch.empty_like(planes)
+    if w == 0 or m == 0:
+        return out
+    lib = build.load_library().lib
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(lib.gf256_scale_planes_launch(
+            masks.data_ptr(), planes.data_ptr(), out.data_ptr(), m, w,
+            stream), "gf256_scale_planes")
+    gf256_scale_planes.launches += 1
+    return out
+
+
+gf256_scale_planes.launches = 0

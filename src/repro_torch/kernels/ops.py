@@ -1,11 +1,13 @@
 """Public byte-level entry points of the EC data plane.
 
 Each takes and returns uint8 torch tensors on one device. A CUDA tensor
-launches the CUDA kernels (`gf256_matmul_planes`, `xor_reduce_words`); a
-CPU tensor takes their plain PyTorch versions through the same wrappers;
+launches the CUDA kernels (`gf256_matmul_planes`, `xor_reduce_words`, and
+for the batched data plane `gf256_scale_planes`, `xor_reduce_groups_words`);
+a CPU tensor takes their plain PyTorch versions through the same wrappers;
 `use_kernel=False` picks the plain byte-domain version explicitly. The
-byte contracts are those of the JAX package's `kernels/ops.py`. Bit-slicing
-at the boundary (`bitplane.pack` / `unpack`) is plain torch on the device.
+byte contracts are those of the JAX package's `kernels/ops.py`, and every
+output stays on its input's device. Bit-slicing at the boundary
+(`bitplane.pack` / `unpack`) is plain torch on the device.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ import torch
 
 from repro_torch.ec import bitplane
 from repro_torch.kernels import ref
-from repro_torch.kernels.gf256_matmul import gf256_matmul_planes
-from repro_torch.kernels.xor_reduce import xor_reduce_words
+from repro_torch.kernels.gf256_matmul import (gf256_matmul_planes,
+                                              gf256_scale_planes)
+from repro_torch.kernels.xor_reduce import (xor_reduce_groups_words,
+                                            xor_reduce_words)
 
 
 def _check_bytes(x: torch.Tensor, name: str) -> None:
@@ -62,6 +66,59 @@ def xor_reduce(chunks: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor
     words = chunks.contiguous().view(torch.int32)          # (k, W)
     out = xor_reduce_words(words)
     return out.view(torch.uint8)[:nbytes]
+
+
+def gf256_scale_batch(
+    coeffs: np.ndarray,
+    data: torch.Tensor,
+    *,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """(M,) uint8 coeffs x (M, nbytes) uint8 -> (M, nbytes): row i scaled
+    by its own coefficient.
+
+    The batched data-plane premultiply: one call covers every (job, helper)
+    chunk of a plan batch, one `gf256_scale_planes` launch over an
+    (M, W/256) grid. `coeffs` is a host array (it parametrizes the masks).
+    """
+    _check_bytes(data, "data")
+    coeffs = np.asarray(coeffs, dtype=np.uint8).reshape(-1)
+    if coeffs.size != data.shape[0]:
+        raise ValueError(f"{coeffs.size} coeffs for {data.shape[0]} rows")
+    if coeffs.size == 0 or not use_kernel:
+        return ref.gf256_scale_batch_ref(coeffs, data)
+    nbytes = data.shape[-1]
+    masks = bitplane.coeff_to_masks(coeffs[:, None], data.device)
+    out_planes = gf256_scale_planes(masks, bitplane.pack(data))
+    return bitplane.unpack(out_planes, nbytes)
+
+
+def xor_reduce_segments(
+    chunks: torch.Tensor,
+    groups: np.ndarray,
+    *,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """(T, nbytes) uint8 chunks + (G, Kmax) host row-index groups (-1
+    padded) -> (G, nbytes): XOR-fold of each group's member rows.
+
+    The batched data-plane merge: group g holds the rows arriving at one
+    (case, destination) in a round. One `xor_reduce_groups_words` launch
+    gathers and folds every group on the card; index -1 reads zero, the
+    XOR identity. With `nbytes` a multiple of 4 the chunks are read in
+    place; otherwise they are first padded to whole words (a copy).
+    """
+    _check_bytes(chunks, "chunks")
+    groups = np.asarray(groups, dtype=np.int64)
+    if groups.shape[0] == 0 or not use_kernel:
+        return ref.xor_reduce_segments_ref(chunks, groups)
+    nbytes = chunks.shape[-1]
+    pad = -nbytes % 4
+    if pad:
+        chunks = torch.nn.functional.pad(chunks, (0, pad))
+    words = chunks.contiguous().view(torch.int32)          # (T, W)
+    out = xor_reduce_groups_words(words, groups)
+    return out.view(torch.uint8)[:, :nbytes]
 
 
 def rs_encode(parity_coeff: np.ndarray, data_blocks: torch.Tensor) -> torch.Tensor:

@@ -66,3 +66,67 @@ def xor_reduce_ref(words: torch.Tensor) -> torch.Tensor:
     for i in range(1, words.shape[0]):
         out ^= words[i]
     return out
+
+
+def gf256_scale_planes_ref(masks: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Plane-domain plain version of `gf256_scale_planes`: row r scaled by
+    its own coefficient, out[r, bi, w] = XOR_bj planes[r, bj, w] &
+    masks[r, 0, bi, bj]; (M,1,8,8) x (M,8,W) -> (M,8,W) int32."""
+    out = torch.zeros_like(planes)
+    for bj in range(8):
+        out ^= planes[:, bj][:, None, :] & masks[:, 0, :, bj][:, :, None]
+    return out
+
+
+def xor_reduce_groups_words_ref(words: torch.Tensor,
+                                groups: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of `xor_reduce_groups_words`.
+
+    Without `groups`: (G, K, W) int32 -> (G, W), XOR over axis 1. With
+    `groups`, a (G, Kmax) int64 row-index table on the words' device (-1
+    pads): (T, W) words -> (G, W), the XOR of each group's rows.
+    """
+    if groups is None:
+        out = words[:, 0].clone()
+        for i in range(1, words.shape[1]):
+            out ^= words[:, i]
+        return out
+    out = torch.zeros((groups.shape[0], words.shape[1]), dtype=words.dtype,
+                      device=words.device)
+    for i in range(groups.shape[1]):
+        rows = groups[:, i]
+        live = rows >= 0
+        out[live] ^= words[rows[live]]
+    return out
+
+
+def gf256_scale_batch_ref(coeffs: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+    """(M,) host uint8 coeffs x (M, nbytes) uint8 -> (M, nbytes) uint8.
+
+    Byte-domain plain version of the batched premultiply: one `MUL_TABLE`
+    gather on the data's device covers the whole batch.
+    """
+    coeffs = np.asarray(coeffs, dtype=np.uint8).reshape(-1)
+    if data.shape[0] != coeffs.shape[0]:
+        raise ValueError(f"coeffs {coeffs.shape} vs data {tuple(data.shape)}")
+    rows = torch.from_numpy(coeffs.astype(np.int64)).to(data.device)
+    return gf256.mul_table(data.device)[rows[:, None], data.long()]
+
+
+def xor_reduce_segments_ref(chunks: torch.Tensor, groups: np.ndarray) -> torch.Tensor:
+    """(T, nbytes) uint8 chunks + (G, Kmax) host row-index groups (-1
+    padded) -> (G, nbytes) uint8: byte-domain XOR of each group's rows.
+
+    Gathers the dense (G, Kmax, nbytes) copy, as `xor_reduce_segments_np`
+    does; index -1 reads an all-zero row (the XOR identity).
+    """
+    groups = torch.from_numpy(np.asarray(groups, dtype=np.int64)).to(chunks.device)
+    if groups.numel() == 0:
+        return torch.zeros((groups.shape[0], chunks.shape[-1]),
+                           dtype=torch.uint8, device=chunks.device)
+    rows = chunks[groups.clamp(min=0)]
+    rows[groups < 0] = 0
+    out = rows[:, 0].clone()
+    for i in range(1, rows.shape[1]):
+        out ^= rows[:, i]
+    return out

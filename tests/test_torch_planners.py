@@ -169,8 +169,9 @@ def test_validate_plan_object_walk_and_fast_gap():
         plan.Round(transfers=[plan.Transfer(3, 0, 0, frozenset({2}))])])
     plan.validate_plan(good)
     plan.validate_plan(good, fast=False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        plan.validate_plan(good, fast=True)
+    # the gap is closed: fast=True takes the compiled PlanArrays path
+    plan.validate_plan(good, fast=True)
     bad = plan.RepairPlan(jobs=[job], rounds=good.rounds[:1])
-    with pytest.raises(ValueError, match="does not complete"):
-        plan.validate_plan(bad)
+    for fast in (None, False, True):
+        with pytest.raises(ValueError, match="does not complete"):
+            plan.validate_plan(bad, fast=fast)
