@@ -7,19 +7,25 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 0. the card's name and power limit (`nvidia-smi`), the torch version;
    raises when no CUDA device is visible;
 1. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, sm_90a);
-2. hold each of the four kernels against its plain PyTorch version on the
+2. hold each of the six kernels against its plain PyTorch version on the
    card, bit-exact, at the CPU-test shapes and the main paths' shapes, and
-   time both (CUDA events, median of 20) beside the least time the card
-   could take for the same work and, where one exists, one PyTorch call
-   computing the same function (`library_ms`);
+   time both beside the least time the card could take for the same work
+   and, where one exists, one PyTorch call computing the same function
+   (`library_ms`): a kernel's `ms` is its own device time from
+   torch.profiler (mean of 20 launches), `ms_events` and `ms_single` the
+   wrapper's call by CUDA events (20 back to back; the median of 20 single
+   calls), the plain and library times 20 calls back to back; the
+   byte-domain GF(256) kernels also at misaligned row offsets and against
+   the plane route (`bitplane.pack`, plane kernel, `unpack`);
 3. the serial repair path at full size: the repair-demo scenario (RS(6,3)
    on the Aliyun Table III matrix under markov churn, 128 MB chunks)
    planned and simulated for every single-failure scheme, a 128 MiB-per-
    block stripe encoded on the card, the BMF plan's repair executed
    through the kernels and verified byte-exact; the kernels' launch
-   counters are set to 0 just before and read just after; then one more
-   repair is traced with torch.profiler (device time by kernel, the
-   device's idle share);
+   counters (and calls of `bitplane.pack` / `unpack`, which must be 0)
+   are set to 0 just before and read just after; then one more repair is
+   traced with torch.profiler (device time by kernel, the device's idle
+   share; no bit-slicing op may show);
 4. small-input checks: every scheme's plan executed on the card equals the
    CPU plain path byte for byte and verifies, serially and as one mixed
    batch (all 8 schemes, failures (0,) and (0, 4), 4099 bytes);
@@ -27,7 +33,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    plan each (traditional, PPR, BMF, PPT), repaired by one
    `execute_plans_batch` call on the card and verified; counters set to 0
    just before and read just after; wall time (first call, median of 5),
-   peak device memory, and one torch.profiler trace.
+   peak device memory, and one torch.profiler trace; then the same at
+   B=8 (the four schemes twice: HDFS's default of 8 EC reconstruction
+   threads per DataNode).
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -58,7 +66,9 @@ from repro_torch.ec import bitplane, gf256  # noqa: E402
 from repro_torch.ec.rs import RSCode  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import load_library  # noqa: E402
-from repro_torch.kernels.gf256_matmul import (gf256_matmul_planes,  # noqa: E402
+from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
+                                              gf256_matmul_planes,
+                                              gf256_scale_bytes,
                                               gf256_scale_planes)
 from repro_torch.kernels.xor_reduce import (xor_reduce_groups_words,  # noqa: E402
                                             xor_reduce_words)
@@ -69,7 +79,7 @@ W_PLANES = BLOCK_BYTES // 32       # plane words per 128 MiB block
 W_WORDS = BLOCK_BYTES // 4         # 32-bit words per 128 MiB block
 REPS = 20
 HEAD = 4 * MIB                     # bytes compared with the host's copy
-BATCH = 4                          # phase 5: stripes in one batched repair
+BATCHES = (4, 8)                   # phase 5: stripes in one batched repair
 BATCH_SCHEMES = ("traditional", "ppr", "bmf", "ppt")
 
 KERNELS = {
@@ -85,11 +95,33 @@ KERNELS = {
     "xor_reduce_groups_words": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/xor_reduce.cu",
         replaces="src/repro/kernels/xor_reduce.py:54"),
+    "gf256_matmul_bytes": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/gf256_matmul.cu",
+        replaces="src/repro/kernels/gf256_matmul.py:40"),
+    "gf256_scale_bytes": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/gf256_matmul.cu",
+        replaces="src/repro/kernels/gf256_matmul.py:74"),
 }
 WRAPPERS = {"gf256_matmul_planes": gf256_matmul_planes,
             "xor_reduce_words": xor_reduce_words,
             "gf256_scale_planes": gf256_scale_planes,
-            "xor_reduce_groups_words": xor_reduce_groups_words}
+            "xor_reduce_groups_words": xor_reduce_groups_words,
+            "gf256_matmul_bytes": gf256_matmul_bytes,
+            "gf256_scale_bytes": gf256_scale_bytes}
+
+
+def _counted(fn):
+    def wrapper(*args, **kwargs):
+        wrapper.calls += 1
+        return fn(*args, **kwargs)
+
+    wrapper.calls = 0
+    return wrapper
+
+
+# calls of the bit-slicing around the plane kernels; no main path makes any
+bitplane.pack = _counted(bitplane.pack)
+bitplane.unpack = _counted(bitplane.unpack)
 
 
 def nvidia_smi(query: str) -> str:
@@ -121,7 +153,24 @@ def bound(nbytes: float, ops: float, peaks: dict) -> tuple[float, str]:
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median over `reps` runs of one call, timed with CUDA events."""
+    """Device time of one call: `reps` calls enqueued back to back between
+    two CUDA events, after a warm-up call, over `reps`. The host's work
+    around each launch overlaps the device's work of the previous one."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_single(fn, reps: int = REPS) -> float:
+    """Median over `reps` single calls, each between two CUDA events: the
+    device time plus whatever the device waits for the host to launch."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -134,6 +183,35 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_device_ms(fn, label: str, reps: int = REPS) -> float:
+    """Mean device time of the one kernel each call of `fn` launches (its
+    name holds `label`), over `reps` calls, from torch.profiler's CUDA
+    activity records: the kernel alone, whatever the host does around it."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and label in ev.name]
+    if len(times) != reps:
+        raise AssertionError(f"{len(times)} '{label}' kernels in {reps} calls")
+    return sum(times) / reps
+
+
+def kernel_times(fn, label: str) -> dict:
+    """A kernel wrapper's times: `ms` the kernel alone (profiler),
+    `ms_events` a call back to back and `ms_single` a single call (CUDA
+    events, the wrapper's host work included where the card waits on it)."""
+    return dict(ms=kernel_device_ms(fn, label), ms_events=cuda_ms(fn),
+                ms_single=cuda_ms_single(fn))
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -174,11 +252,16 @@ def table_gather_ms(coeffs: np.ndarray, data: torch.Tensor) -> tuple[float, torc
     return ms, table[rows, index]
 
 
+def with_0_and_1(coeffs: np.ndarray) -> np.ndarray:
+    flat = coeffs.reshape(-1)
+    flat[0] = 1                        # coefficients 1 and 0 take part too
+    if flat.size > 1:
+        flat[1] = 0
+    return coeffs
+
+
 def check_gf256(rng, peaks, m, k, w, timed):
-    coeff = rng.integers(0, 256, size=(m, k), dtype=np.uint8)
-    coeff.flat[0] = 1                   # coefficients 1 and 0 take part too
-    if coeff.size > 1:
-        coeff.flat[1] = 0
+    coeff = with_0_and_1(rng.integers(0, 256, size=(m, k), dtype=np.uint8))
     masks = bitplane.coeff_to_masks(coeff, "cuda")
     planes = random_words(rng, (k, 8, w))
     got = gf256_matmul_planes(masks, planes)
@@ -193,7 +276,8 @@ def check_gf256(rng, peaks, m, k, w, timed):
         nbytes = 4 * 8 * w * (k + m) + masks.numel() * 4
         lop3 = 64 * m * k * w
         bms, by = bound(nbytes, lop3, peaks)
-        rec.update(ms=cuda_ms(lambda: gf256_matmul_planes(masks, planes)),
+        rec.update(**kernel_times(lambda: gf256_matmul_planes(masks, planes),
+                                  "gf256_matmul_planes"),
                    plain_ms=cuda_ms(
                        lambda: ref.gf256_matmul_planes_ref(masks, planes)),
                    bound_ms=bms, bound_by=by, library_ms=None,
@@ -206,10 +290,7 @@ def check_gf256(rng, peaks, m, k, w, timed):
 
 
 def check_scale(rng, peaks, m, w, timed):
-    coeffs = rng.integers(0, 256, size=m, dtype=np.uint8)
-    coeffs[0] = 1                      # coefficients 1 and 0 take part too
-    if m > 1:
-        coeffs[1] = 0
+    coeffs = with_0_and_1(rng.integers(0, 256, size=m, dtype=np.uint8))
     masks = bitplane.coeff_to_masks(coeffs[:, None], "cuda")
     planes = device_words(int(rng.integers(1 << 30)), (m, 8, w))
     got = gf256_scale_planes(masks, planes)
@@ -225,7 +306,8 @@ def check_scale(rng, peaks, m, w, timed):
         nbytes = 2 * m * 32 * w + masks.numel() * 4
         lop3 = 64 * m * w
         bms, by = bound(nbytes, lop3, peaks)
-        rec.update(ms=cuda_ms(lambda: gf256_scale_planes(masks, planes)),
+        rec.update(**kernel_times(lambda: gf256_scale_planes(masks, planes),
+                                  "gf256_scale_planes"),
                    plain_ms=cuda_ms(
                        lambda: ref.gf256_scale_planes_ref(masks, planes)),
                    bound_ms=bms, bound_by=by, bytes=nbytes, lop3_ops=lop3)
@@ -244,6 +326,120 @@ def check_scale(rng, peaks, m, w, timed):
         del data, by_op, by_table
         torch.cuda.empty_cache()
     return rec
+
+
+def device_rows(rng: np.random.Generator, rows: int, n: int,
+                offset: int = 0) -> torch.Tensor:
+    """(rows, n) uint8 on the card from the host generator; with `offset`,
+    a contiguous view `offset` bytes into a larger allocation, so its rows
+    start off 16-byte alignment."""
+    host = rng.integers(0, 256, size=offset + rows * n, dtype=np.uint8)
+    return torch.from_numpy(host).cuda()[offset:].view(rows, n)
+
+
+def byte_kernel_record(rec, peaks, n, ins, outs, pairs, time_kernel,
+                       time_plain) -> None:
+    """Times and bounds of a byte-domain GF(256) kernel: `ins` input and
+    `outs` output rows of n bytes, `pairs` (output, input) products. The
+    bound counts each row read or written once (plus 32 bytes of column
+    words a pair) and 8 LOP3 a pair per 4 bytes, the bit-matrix product
+    the plane kernels count too; `design_ops` is the kernel's own count,
+    15 ops per input and 4 bytes to expand the bit masks besides."""
+    nbytes = n * (ins + outs) + 32 * pairs
+    lop3 = 2 * pairs * n
+    design_ops = (n // 4) * (15 * ins + 8 * pairs)
+    bms, by = bound(nbytes, lop3, peaks)
+    rec.update(**kernel_times(time_kernel, rec["kernel"]),
+               plain_ms=cuda_ms(time_plain),
+               bound_ms=bms, bound_by=by, bytes=nbytes, lop3_ops=lop3,
+               design_ops=design_ops,
+               design_ops_ms=design_ops / peaks["lop3_per_s"] * 1e3,
+               library_ms=None)
+
+
+def draw_coeffs(rng, shape, timed) -> np.ndarray:
+    """Coefficients for a check: 0 and 1 among them, or for a timed check
+    none (the plain versions skip 0 and copy for 1; the kernels do not)."""
+    if timed:
+        return rng.integers(2, 256, size=shape, dtype=np.uint8)
+    return with_0_and_1(rng.integers(0, 256, size=shape, dtype=np.uint8))
+
+
+def check_matmul_bytes(rng, peaks, m, k, n, timed, offset=0):
+    coeff = draw_coeffs(rng, (m, k), timed)
+    data = (device_bytes(15, (k, n)) if timed
+            else device_rows(rng, k, n, offset))
+    got = gf256_matmul_bytes(coeff, data)
+    torch.cuda.synchronize()
+    want = ref.gf256_matmul_bytes_ref(coeff, data)
+    torch.cuda.synchronize()
+    rec = dict(kernel="gf256_matmul_bytes",
+               shape=f"m={m} k={k} n={n} offset={offset}",
+               max_abs_err=max_abs_err(got, want))
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"gf256_matmul_bytes disagrees: {rec}")
+    del want
+    if timed:
+        byte_kernel_record(
+            rec, peaks, n, k, m, m * k,
+            lambda: gf256_matmul_bytes(coeff, data),
+            lambda: ref.gf256_matmul_bytes_ref(coeff, data))
+        if (m, k) == (1, 1):   # the premultiply: one table gather of 128 MiB
+            rec["library_ms"], by_table = table_gather_ms(coeff[:, 0], data)
+            if not torch.equal(got, by_table):
+                raise AssertionError("gf256_matmul_bytes != MUL_TABLE gather")
+    return rec
+
+
+def check_scale_bytes(rng, peaks, m, n, timed, offset=0):
+    coeffs = draw_coeffs(rng, m, timed)
+    data = (device_bytes(16, (m, n)) if timed
+            else device_rows(rng, m, n, offset))
+    got = gf256_scale_bytes(coeffs, data)
+    torch.cuda.synchronize()
+    want = ref.gf256_scale_batch_ref(coeffs, data)
+    torch.cuda.synchronize()
+    rec = dict(kernel="gf256_scale_bytes",
+               shape=f"M={m} n={n} offset={offset}",
+               max_abs_err=max_abs_err(got, want))
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"gf256_scale_bytes disagrees: {rec}")
+    del want
+    if timed:
+        byte_kernel_record(
+            rec, peaks, n, m, m, m,
+            lambda: gf256_scale_bytes(coeffs, data),
+            lambda: ref.gf256_scale_batch_ref(coeffs, data))
+        torch.cuda.empty_cache()
+        rec["library_ms"], by_table = table_gather_ms(coeffs, data)
+        if not torch.equal(got, by_table):
+            raise AssertionError("gf256_scale_bytes != MUL_TABLE gather")
+    return rec
+
+
+def check_plane_route(rng, m, k, n):
+    """The two ports of each Pallas kernel agree: the byte kernels against
+    `bitplane.pack`, the plane kernel and `unpack` on the same bytes."""
+    coeff = with_0_and_1(rng.integers(0, 256, size=(m, k), dtype=np.uint8))
+    data = device_rows(rng, k, n)
+    planes = gf256_matmul_planes(bitplane.coeff_to_masks(coeff, "cuda"),
+                                 bitplane.pack(data))
+    by_matmul = max_abs_err(gf256_matmul_bytes(coeff, data),
+                            bitplane.unpack(planes, n))
+    coeffs = coeff[0].copy()
+    masks = bitplane.coeff_to_masks(coeffs[:, None], "cuda")
+    planes = gf256_scale_planes(masks, bitplane.pack(data))
+    by_scale = max_abs_err(gf256_scale_bytes(coeffs, data),
+                           bitplane.unpack(planes, n))
+    torch.cuda.synchronize()
+    recs = [dict(kernel="gf256_matmul_bytes", max_abs_err=by_matmul,
+                 shape=f"plane route m={m} k={k} n={n}"),
+            dict(kernel="gf256_scale_bytes", max_abs_err=by_scale,
+                 shape=f"plane route M={k} n={n}")]
+    for rec in recs:
+        if rec["max_abs_err"] != 0:
+            raise AssertionError(f"byte and plane routes disagree: {rec}")
+    return recs
 
 
 def check_groups(peaks, words, table, timed, label):
@@ -270,7 +466,9 @@ def check_groups(peaks, words, table, timed, label):
             rows, entries = np.unique(live).size, live.size
         nbytes = 4 * w * (rows + g)
         bms, by = bound(nbytes, max(entries - g, 0) * w, peaks)
-        rec.update(ms=cuda_ms(lambda: xor_reduce_groups_words(words, table)),
+        rec.update(**kernel_times(
+                       lambda: xor_reduce_groups_words(words, table),
+                       "xor_reduce_groups"),
                    plain_ms=cuda_ms(
                        lambda: ref.xor_reduce_groups_words_ref(words, index)),
                    bound_ms=bms, bound_by=by, bytes=nbytes,
@@ -296,7 +494,8 @@ def check_xor(rng, peaks, k, w, timed):
     if timed:
         nbytes = 4 * w * (k + 1)
         bms, by = bound(nbytes, (k - 1) * w, peaks)
-        rec.update(ms=cuda_ms(lambda: xor_reduce_words(words)),
+        rec.update(**kernel_times(lambda: xor_reduce_words(words),
+                                  "xor_reduce_words"),
                    plain_ms=cuda_ms(lambda: ref.xor_reduce_ref(words)),
                    bound_ms=bms, bound_by=by, bytes=nbytes)
         if k == 2:   # the yardstick: one PyTorch call, never used by the port
@@ -310,9 +509,15 @@ def check_xor(rng, peaks, k, w, timed):
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    bitplane.pack.calls = bitplane.unpack.calls = 0
 
 
 def read_launches() -> dict:
+    """Each kernel's launches since `reset_launches`; raises if anything
+    bit-sliced its bytes in that time."""
+    if bitplane.pack.calls or bitplane.unpack.calls:
+        raise AssertionError(f"bitplane.pack ran {bitplane.pack.calls} and "
+                             f"unpack {bitplane.unpack.calls} times")
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
@@ -326,12 +531,16 @@ def demo_scenario(failed=(0,)) -> tuple:
     return cluster, code, sc
 
 
-# device kernels grouped under short labels: the port's own kernels, then
-# the plain-torch ops of the bit-slicing around them
-KERNEL_LABELS = ("gf256_matmul_planes", "xor_reduce_words",
+# device kernels grouped under short labels: the port's own kernels, the
+# plain-torch ops of the bit-slicing around the plane kernels, then the rest
+KERNEL_LABELS = ("gf256_matmul_bytes", "gf256_scale_bytes",
+                 "gf256_matmul_planes", "xor_reduce_words",
                  "gf256_scale_planes", "xor_reduce_groups", "sum_functor",
                  "lshift", "rshift", "BitwiseAndFunctor", "BitwiseOrFunctor",
                  "BitwiseXorFunctor", "copy", "Fill", "CatArray", "index")
+# the labels of `bitplane.pack` / `unpack`'s ops: no profiled path has any
+PACK_LABELS = ("sum_functor", "lshift", "rshift", "BitwiseAndFunctor",
+               "BitwiseOrFunctor")
 
 
 def profile_repair(repair, phase: str = "profile_repair") -> dict:
@@ -355,6 +564,10 @@ def profile_repair(repair, phase: str = "profile_repair") -> dict:
     busy_ms = sum(by_label.values())
     if busy_ms <= 0:
         raise AssertionError("profiled repair shows no device time")
+    packing = sorted(set(by_label) & set(PACK_LABELS))
+    if packing:
+        raise AssertionError(f"{phase}: bit-slicing ops on the card: "
+                             f"{packing}")
     rec = dict(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / wall_ms,
                device_ms_by_label=dict(sorted(by_label.items(),
@@ -411,9 +624,21 @@ def main_path(records: list) -> dict:
         raise AssertionError(f"BMF repair not verified: {ex.verified}")
     if not np.array_equal(lost[:head].cpu().numpy(), data_np[0, :head]):
         raise AssertionError("repaired block (first 4 MiB) != lost data")
-    for name in ("gf256_matmul_planes", "xor_reduce_words"):
-        if launches[name] <= 0:
-            raise AssertionError(f"main path never launched {name}")
+    # the encode and one premultiply per helper, in bytes; no plane kernel
+    helpers = sum(len(job.helpers) for job in bmf.plan.jobs)
+    if (launches["gf256_matmul_bytes"] != 1 + helpers
+            or launches["xor_reduce_words"] <= 0
+            or launches["gf256_matmul_planes"] or launches["gf256_scale_planes"]
+            or launches["gf256_scale_bytes"]
+            or launches["xor_reduce_groups_words"]):
+        raise AssertionError(f"serial path launches {launches}")
+
+    encode_steady = []            # the counted first call also grew the allocator
+    for _ in range(5):
+        tic = time.perf_counter()
+        code.encode(data)
+        torch.cuda.synchronize()
+        encode_steady.append(time.perf_counter() - tic)
 
     def repair():
         executor.execute_plan(bmf.plan, code, codeword, device="cuda")
@@ -426,7 +651,9 @@ def main_path(records: list) -> dict:
         steady.append(time.perf_counter() - tic)
     rec = dict(phase="main_path", block_bytes=BLOCK_BYTES,
                verified=ex.verified, bytes_moved=ex.bytes_moved,
-               encode_wall_s=encode_s, repair_wall_s=repair_s,
+               encode_wall_s=encode_s,
+               encode_wall_s_median_of_5=statistics.median(encode_steady),
+               repair_wall_s=repair_s,
                repair_wall_s_median_of_5=statistics.median(steady),
                launches=launches,
                simulated_s={s: float(r.total_time) for s, r in results.items()},
@@ -495,24 +722,26 @@ def scheme_plan(sc, scheme: str):
     return RepairSimulator(sc).run(scheme).plan
 
 
-def batch_layout():
-    """Phase 5's plans (one per stripe), compiled, with the batch's
-    round tables as `execute_plans_batch` lowers them on the host."""
+def batch_layout(batch: int):
+    """Phase 5's plans (one per stripe, the four schemes in turn),
+    compiled, with the batch's round tables as `execute_plans_batch`
+    lowers them on the host."""
     _, code, sc = demo_scenario()
-    plans = [compile_plan(scheme_plan(sc, s)) for s in BATCH_SCHEMES]
+    schemes = [BATCH_SCHEMES[b % len(BATCH_SCHEMES)] for b in range(batch)]
+    plans = [compile_plan(scheme_plan(sc, s)) for s in schemes]
     n_nodes = max(pa.num_nodes for pa in plans)
     slots = max(pa.num_jobs for pa in plans) * n_nodes
     _, steps, _ = dataplane._schedule(plans, n_nodes, slots)
     return code, plans, slots, steps
 
 
-def batched_path(records: list) -> dict:
-    """Phase 5: B=4 stripes of 3 x 128 MiB, one plan each, repaired by
+def batched_path(records: list, batch: int) -> dict:
+    """Phase 5: `batch` stripes of 3 x 128 MiB, one plan each, repaired by
     one `execute_plans_batch` call on the card."""
-    code, plans, slots, steps = batch_layout()
+    code, plans, slots, steps = batch_layout(batch)
     rng = np.random.default_rng(5)
     heads, cws = [], []
-    for _ in range(BATCH):
+    for _ in range(batch):
         data = np.frombuffer(bytearray(rng.bytes(code.k * BLOCK_BYTES)),
                              dtype=np.uint8).reshape(code.k, BLOCK_BYTES)
         heads.append(data[0, :HEAD].copy())
@@ -551,8 +780,8 @@ def batched_path(records: list) -> dict:
     if res.bytes_moved.tolist() != serial_moved:
         raise AssertionError(f"bytes_moved {res.bytes_moved.tolist()} != "
                              f"serial {serial_moved}")
-    want = {"gf256_matmul_planes": 0, "xor_reduce_words": 0,
-            "gf256_scale_planes": 1, "xor_reduce_groups_words": len(steps)}
+    want = {name: 0 for name in WRAPPERS}
+    want.update(gf256_scale_bytes=1, xor_reduce_groups_words=len(steps))
     if launches != want:
         raise AssertionError(f"batched path launches {launches} != {want}")
     del res, lost
@@ -562,7 +791,9 @@ def batched_path(records: list) -> dict:
         run()
         torch.cuda.synchronize()
         steady.append(time.perf_counter() - tic)
-    rec = dict(phase="batched_path", stripes=BATCH, schemes=BATCH_SCHEMES,
+    rec = dict(phase="batched_path", stripes=batch,
+               schemes=[BATCH_SCHEMES[b % len(BATCH_SCHEMES)]
+                        for b in range(batch)],
                block_bytes=BLOCK_BYTES, all_verified=True,
                bytes_moved=serial_moved, rounds=len(steps),
                groups_per_round=[int(s.groups.shape[0]) for s in steps],
@@ -577,7 +808,8 @@ def batched_path(records: list) -> dict:
         run()
         torch.cuda.synchronize()
 
-    records.append(profile_repair(traced, phase="profile_batched_path"))
+    records.append(profile_repair(traced,
+                                  phase=f"profile_batched_path_b{batch}"))
     del cws
     torch.cuda.empty_cache()
     return launches
@@ -644,15 +876,16 @@ def main() -> None:
                                         f"T=7 G={table.shape[0]} W={w}"))
         records.append(check_groups(peaks, words.reshape(7, 1, w), None,
                                     False, f"dense G=7 K=1 W={w}"))
-    rec = check_scale(rng, peaks, 3 * BATCH, W_PLANES, timed=True)
+    batch = BATCHES[0]
+    rec = check_scale(rng, peaks, 3 * batch, W_PLANES, timed=True)
     print(json.dumps(rec))
     records.append(rec)
     timed["gf256_scale_planes"] = rec
-    _, _, slots, steps = batch_layout()
+    _, _, slots, steps = batch_layout(batch)
     big = max(steps, key=lambda s: int((s.groups >= 0).sum()))
-    words = device_words(13, (BATCH * slots, W_WORDS))
+    words = device_words(13, (batch * slots, W_WORDS))
     rec = check_groups(peaks, words, big.groups, True,
-                       f"largest batch round: T={BATCH * slots} "
+                       f"largest batch round: T={batch * slots} "
                        f"G={big.groups.shape[0]} Kmax={big.groups.shape[1]} "
                        f"W={W_WORDS}")
     print(json.dumps(rec))
@@ -666,24 +899,54 @@ def main() -> None:
     timed["xor_reduce_groups_words"] = rec
     del words
     torch.cuda.empty_cache()
+
+    # the byte-domain GF(256) kernels the byte entry points launch: the
+    # CPU-test shapes, at a 16-byte aligned and a misaligned row offset,
+    # the plane route, then full width
+    for n in (1, 33, 4099, 4096 + 16):
+        for offset in (0, 3):
+            for m, k in ((1, 1), (3, 6), (2, 16), (5, 3)):
+                records.append(check_matmul_bytes(rng, peaks, m, k, n, False,
+                                                  offset))
+            for m in (1, 5):
+                records.append(check_scale_bytes(rng, peaks, m, n, False,
+                                                 offset))
+    records.extend(check_plane_route(rng, 3, 6, 4099))
+    for m, k in ((1, 1), (3, 3), (3, 6)):
+        rec = check_matmul_bytes(rng, peaks, m, k, BLOCK_BYTES, True)
+        print(json.dumps(rec))
+        records.append(rec)
+        timed.setdefault("gf256_matmul_bytes", rec)    # (1,1) is the repair's
+        torch.cuda.empty_cache()
+    rec = check_scale_bytes(rng, peaks, 3 * batch, BLOCK_BYTES, True)
+    print(json.dumps(rec))
+    records.append(rec)
+    timed["gf256_scale_bytes"] = rec
+    torch.cuda.empty_cache()
     for rec in records[1:]:
         errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
 
     serial_launches = main_path(records)
     small_checks(records)
-    batch_launches = batched_path(records)
-    # each kernel's launches on the path that runs it (a new dict: the
-    # phases' records keep their own counts)
+    batch_launches = [batched_path(records, b) for b in BATCHES]
+    print(json.dumps({"launches": {"serial": serial_launches,
+                                   **{f"batched_b{b}": lc for b, lc in
+                                      zip(BATCHES, batch_launches)}}}))
+    # each kernel's launches on the path that runs it, the batched ones at
+    # B=4 (a new dict: the phases' records keep their own counts); the
+    # plane kernels run on no path
     launches = {**serial_launches,
-                **{k: batch_launches[k] for k in ("gf256_scale_planes",
-                                                  "xor_reduce_groups_words")}}
+                **{k: batch_launches[0][k] for k in ("gf256_scale_planes",
+                                                     "gf256_scale_bytes",
+                                                     "xor_reduce_groups_words")}}
 
     kernels = []
     for kname, meta in KERNELS.items():
         t = timed[kname]
         kernels.append(dict(
             name=kname, **meta, launches=launches[kname],
-            max_abs_err=errs[kname], ms=t["ms"], plain_ms=t["plain_ms"],
+            max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
+            ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"]))
     device = {"platform": "gpu", "kind": name,

@@ -12,7 +12,7 @@
   wraps back into `Round`/`Transfer` objects;
 * `repro_torch.core.engine.dataplane` — the byte data plane: batches of
   compiled plans executed over real bytes in one `(B, slots, nbytes)`
-  buffer on the device (one `gf256_scale_planes` launch for the whole
+  buffer on the device (one `gf256_scale_bytes` launch for the whole
   batch's premultiply, one `xor_reduce_groups_words` launch per round),
   byte-identical to the serial walk in `repro_torch.core.executor`.
 

@@ -10,7 +10,7 @@ slot `j * N + v` is node v's buffer for job j; row `b * S + slot` of its
 
 1. **GF(256) premultiply** (init) — every helper chunk of the batch scaled
    by its repair coefficient in one `kernels.ops.gf256_scale_batch` call
-   (one `gf256_scale_planes` launch), with the coefficients computed
+   (one `gf256_scale_bytes` launch), with the coefficients computed
    batched by `RSCode.repair_coeffs_batch` (one lockstep Gauss-Jordan per
    code);
 2. per round, **gather + segment-XOR** — one `kernels.ops.xor_reduce_segments`

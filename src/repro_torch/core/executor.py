@@ -3,7 +3,7 @@
 The simulator times a plan; this module *runs* it. `execute_plan` walks one
 plan serially: every helper holds a real chunk (a uint8 tensor on the
 device), premultiplies its Galois coefficient through `ops.gf256_matmul`
-(the `gf256_matmul_planes` CUDA kernel on the card), transfers move buffers
+(the `gf256_matmul_bytes` CUDA kernel on the card), transfers move buffers
 between per-(job, node) stores, and merges XOR through `ops.xor_reduce`
 (the `xor_reduce_words` kernel). Relay nodes only buffer (the paper:
 forwarding nodes do not compute). At the end the requestor's buffer must

@@ -102,6 +102,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gf256_scale_planes_launch.restype = i32
     lib.xor_reduce_groups_launch.argtypes = [p, p, p, i32, i32, i64, p]
     lib.xor_reduce_groups_launch.restype = i32
+    lib.gf256_matmul_bytes_launch.argtypes = [p, p, p, i32, i32, i64, p]
+    lib.gf256_matmul_bytes_launch.restype = i32
+    lib.gf256_scale_bytes_launch.argtypes = [p, p, p, i32, i64, p]
+    lib.gf256_scale_bytes_launch.restype = i32
 
 
 @functools.lru_cache(maxsize=1)

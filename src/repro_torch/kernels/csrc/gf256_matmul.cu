@@ -44,6 +44,56 @@
 // (coalesced), folds them through `fold_8x8` (shared with the product
 // above) and stores 8 words. No loop over inputs; the ragged edge is
 // masked, not padded.
+//
+// Neither plane kernel is on a main path: the byte entry points in
+// `kernels/ops.py` launch the two byte-domain kernels below instead.
+//
+// ---- Byte domain: the same two Pallas kernels, without bit-planes.
+//
+// `gf256_matmul_bytes` replaces `gf256_matmul_planes` together with the
+// bit-slicing around it (src/repro/kernels/gf256_matmul.py, `_kernel`, and
+// `bitplane.pack` / `unpack`), taking and returning bytes:
+//
+//   out[o, p] = XOR_i coeff[o, i] (*) in[i, p]    in (k, n), out (m, n) uint8
+//
+// and `gf256_scale_bytes` replaces `gf256_scale_planes` with its
+// bit-slicing: out[r, p] = coeff[r] (*) in[r, p], in and out (M, n) uint8.
+//
+// The arithmetic: multiplying by c is GF(2)-linear, and column bj of its
+// 8x8 bit-matrix, read as a byte, is col[bj] = c (*) (1 << bj). So
+// c (*) x = XOR_{bj : bit bj of x set} col[bj]. On a 32-bit word of four
+// bytes: expand bit bj of each byte into a 0x00 / 0xFF byte mask (shift it
+// up to bit 7 of its byte, then one `prmt` replicates each byte's sign
+// bit), AND it with col[bj] replicated to all four bytes and XOR it into
+// the accumulator (one LOP3). The host makes the replicated column words
+// (m, k, 8) from the coefficients (`gf256_matmul.coeff_to_columns`); the
+// layout is never changed, the TPU's reason for bit-planes (no byte
+// shuffle) does not hold on Hopper.
+//
+// What bounds it on the H100: per 4-byte word of a row, 15 ops to expand
+// the 8 masks of each input (7 shifts, 8 `prmt`) and one LOP3 per (output,
+// input, bit): 15 k + 8 m k 32-bit integer ops, against 4 (k + m) bytes of
+// device memory. At 64 integer ops per clock per SM the (1, 1) premultiply
+// and the M-row scale (23 ops per 8 bytes moved) are bound by device
+// memory; (3, 3) is at the balance and (3, 6) is bound by integer ops.
+// The masks of an input are expanded once and shared by every output of
+// the block's tile, so the 8 m k LOP3s (the bit-matrix product itself, the
+// count the plane kernel does too) are the larger part.
+//
+// Design: each thread owns 16 contiguous bytes of a row, one `uint4`
+// (neighbouring threads on neighbouring 16 bytes: the widest coalesced
+// load); it loops over the k inputs at run time and keeps 4 words of
+// accumulators for each of up to kMaxTile outputs in registers. The grid's
+// x axis walks tiles of outputs (adjacent blocks read the same input bytes,
+// the second from L2), its y axis and a grid-stride loop the row. A block
+// stages its tile's column words in shared memory and reads them as 16-byte
+// broadcasts. A row whose start is not 16-byte aligned, or whose in and out
+// rows are not aligned alike, and the ragged head and tail of a row, take a
+// scalar path: 4 bytes a thread, loaded and stored byte by byte, never past
+// n. Coefficients 0 and 1 run the same arithmetic (zeros, a copy); nothing
+// is skipped, since the output is a fresh allocation. For the scale each
+// block serves one row (its 8 column words), and the alignment is decided
+// per row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,7 +173,205 @@ gf256_scale_planes_kernel(const uint32_t* __restrict__ masks,
   }
 }
 
+// ---- byte domain
+
+constexpr int kMaxTile = 4;        // outputs per block in gf256_matmul_bytes
+
+// 0xFF in each byte of x whose bit bj is set, else 0x00: bit bj is shifted
+// to bit 7 of its byte, and `prmt` in its default mode with selector nibbles
+// 8, 9, A, B replicates the sign bit of byte n over byte n.
+__device__ __forceinline__ uint32_t bit_mask(uint32_t x, int bj) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(x << (7 - bj)), "r"(0u), "r"(0xBA98u));
+  return d;
+}
+
+// acc[t][q] ^= coeff[t] (*) x[q] for the MT outputs of a tile and NW words
+// of one input; col + t * col_stride holds output t's 8 column words of
+// this input (16-byte aligned, in shared memory).
+template <int MT, int NW>
+__device__ __forceinline__ void fold_bytes(const uint32_t (&x)[NW],
+                                           const uint32_t* col,
+                                           int col_stride,
+                                           uint32_t (&acc)[MT][NW]) {
+  uint32_t c[MT][8];
+#pragma unroll
+  for (int t = 0; t < MT; ++t) {
+    const uint4* ct = reinterpret_cast<const uint4*>(col + t * col_stride);
+    const uint4 lo = ct[0], hi = ct[1];
+    c[t][0] = lo.x; c[t][1] = lo.y; c[t][2] = lo.z; c[t][3] = lo.w;
+    c[t][4] = hi.x; c[t][5] = hi.y; c[t][6] = hi.z; c[t][7] = hi.w;
+  }
+#pragma unroll
+  for (int bj = 0; bj < 8; ++bj) {
+#pragma unroll
+    for (int q = 0; q < NW; ++q) {
+      const uint32_t mask = bit_mask(x[q], bj);
+#pragma unroll
+      for (int t = 0; t < MT; ++t) acc[t][q] ^= mask & c[t][bj];
+    }
+  }
+}
+
+// The byte rows of one problem: k input rows from `in`, `rows_out` (<= MT)
+// output rows from `out`, every row n bytes apart; column words `scol`
+// (MT, k, 8). Bytes [head, head + 16 n16) go 16 at a time (every row
+// 16-byte aligned there), the rest, [0, head) and [head + 16 n16, n), 4 at
+// a time byte by byte. One index space covers both: items [0, n16) are
+// vectors, then the scalar groups of the head, then those of the tail.
+template <int MT>
+__device__ __forceinline__ void gf_bytes_rows(const uint32_t* scol, int k,
+                                              const uint8_t* __restrict__ in,
+                                              uint8_t* __restrict__ out,
+                                              int rows_out, long long n,
+                                              long long head, long long n16) {
+  const long long tail_lo = head + 16 * n16;
+  const long long head_groups = (head + 3) / 4;
+  const long long items = n16 + head_groups + (n - tail_lo + 3) / 4;
+  const long long stride = (long long)gridDim.y * blockDim.x;
+  for (long long u = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+       u < items; u += stride) {
+    if (u < n16) {
+      const long long off = head + 16 * u;
+      uint32_t acc[MT][4] = {};
+      for (int i = 0; i < k; ++i) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(in + (size_t)i * n + off);
+        const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+        fold_bytes<MT, 4>(x, scol + i * 8, k * 8, acc);
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        if (t < rows_out) {
+          *reinterpret_cast<uint4*>(out + (size_t)t * n + off) =
+              make_uint4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+        }
+      }
+    } else {
+      const long long g = u - n16;
+      const long long p = g < head_groups ? 4 * g : tail_lo + 4 * (g - head_groups);
+      const long long end = g < head_groups ? head : n;
+      const int cnt = (int)(end - p < 4 ? end - p : 4);
+      uint32_t acc[MT][1] = {};
+      for (int i = 0; i < k; ++i) {
+        const uint8_t* src = in + (size_t)i * n + p;
+        uint32_t x[1] = {0u};
+        for (int b = 0; b < cnt; ++b) x[0] |= (uint32_t)src[b] << (8 * b);
+        fold_bytes<MT, 1>(x, scol + i * 8, k * 8, acc);
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        if (t < rows_out) {
+          uint8_t* dst = out + (size_t)t * n + p;
+          for (int b = 0; b < cnt; ++b) dst[b] = (uint8_t)(acc[t][0] >> (8 * b));
+        }
+      }
+    }
+  }
+}
+
+// cols (m, k, 8) column words, in (k, n), out (m, n); blockIdx.x is the
+// tile of outputs [MT x, MT x + MT).
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+gf256_matmul_bytes_kernel(const uint32_t* __restrict__ cols,
+                          const uint8_t* __restrict__ in,
+                          uint8_t* __restrict__ out, int m, int k,
+                          long long n, long long head, long long n16) {
+  extern __shared__ __align__(16) uint32_t scol[];   // (MT, k, 8)
+  const int o0 = blockIdx.x * MT;
+  const int rows_out = m - o0 < MT ? m - o0 : MT;
+  const int per_row = k * 8;
+  for (int j = threadIdx.x; j < MT * per_row; j += blockDim.x)
+    scol[j] = j < rows_out * per_row ? cols[(size_t)o0 * per_row + j] : 0u;
+  __syncthreads();
+  gf_bytes_rows<MT>(scol, k, in, out + (size_t)o0 * n, rows_out, n, head, n16);
+}
+
+// cols (M, 8) column words, in and out (M, n); blockIdx.x is the row. The
+// row is vectorised when its in and out starts are aligned alike (`vec`).
+__global__ void __launch_bounds__(kThreads)
+gf256_scale_bytes_kernel(const uint32_t* __restrict__ cols,
+                         const uint8_t* __restrict__ in,
+                         uint8_t* __restrict__ out, long long n, int vec) {
+  __shared__ __align__(16) uint32_t scol[8];
+  const int r = blockIdx.x;
+  if (threadIdx.x < 8) scol[threadIdx.x] = cols[(size_t)r * 8 + threadIdx.x];
+  __syncthreads();
+  const uint8_t* row_in = in + (size_t)r * n;
+  long long head = n, n16 = 0;
+  if (vec) {
+    head = (16 - (long long)((uintptr_t)row_in % 16)) % 16;
+    if (head > n) head = n;
+    n16 = (n - head) / 16;
+  }
+  gf_bytes_rows<1>(scol, 1, row_in, out + (size_t)r * n, 1, n, head, n16);
+}
+
+template <int MT>
+int launch_matmul_bytes(const uint32_t* cols, const uint8_t* in, uint8_t* out,
+                        int m, int k, long long n, cudaStream_t stream) {
+  const size_t smem = (size_t)MT * k * 8 * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gf256_matmul_bytes_kernel<MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // every input and output row aligned alike: one head, then vectors
+  const bool vec = ((uintptr_t)in % 16 == (uintptr_t)out % 16) &&
+                   (n % 16 == 0 || (k == 1 && m == 1));
+  long long head = n, n16 = 0;
+  if (vec) {
+    head = (16 - (long long)((uintptr_t)in % 16)) % 16;
+    if (head > n) head = n;
+    n16 = (n - head) / 16;
+  }
+  const long long items = n16 + (head + 3) / 4 + (n - head - 16 * n16 + 3) / 4;
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  const int tiles = (m + MT - 1) / MT;
+  dim3 grid((unsigned)tiles, (unsigned)(blocks < kMaxGridY ? blocks : kMaxGridY));
+  gf256_matmul_bytes_kernel<MT><<<grid, kThreads, smem, stream>>>(
+      cols, in, out, m, k, n, head, n16);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int gf256_matmul_bytes_launch(const void* cols, const void* in,
+                                         void* out, int m, int k, long long n,
+                                         void* stream) {
+  if (m <= 0 || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  // outputs per block: the fewest tiles of at most kMaxTile, evenly filled
+  const int tiles = (m + kMaxTile - 1) / kMaxTile;
+  const int mt = (m + tiles - 1) / tiles;
+  const uint32_t* c = (const uint32_t*)cols;
+  const uint8_t* x = (const uint8_t*)in;
+  uint8_t* y = (uint8_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mt) {
+    case 1: return launch_matmul_bytes<1>(c, x, y, m, k, n, s);
+    case 2: return launch_matmul_bytes<2>(c, x, y, m, k, n, s);
+    case 3: return launch_matmul_bytes<3>(c, x, y, m, k, n, s);
+    default: return launch_matmul_bytes<4>(c, x, y, m, k, n, s);
+  }
+}
+
+extern "C" int gf256_scale_bytes_launch(const void* cols, const void* in,
+                                        void* out, int M, long long n,
+                                        void* stream) {
+  if (M <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = (uintptr_t)in % 16 == (uintptr_t)out % 16;
+  // a row's items: n / 16 vectors and at most 8 scalar groups; a row that
+  // is not vectorised walks its n / 4 groups with the same grid
+  const long long blocks = (n / 16 + 8 + kThreads - 1) / kThreads;
+  dim3 grid((unsigned)M, (unsigned)(blocks < kMaxGridY ? blocks : kMaxGridY));
+  gf256_scale_bytes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)cols, (const uint8_t*)in, (uint8_t*)out, n, vec);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int gf256_scale_planes_launch(const void* masks, const void* planes,
                                          void* out, int M, long long W,

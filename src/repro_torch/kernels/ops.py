@@ -1,23 +1,24 @@
 """Public byte-level entry points of the EC data plane.
 
 Each takes and returns uint8 torch tensors on one device. A CUDA tensor
-launches the CUDA kernels (`gf256_matmul_planes`, `xor_reduce_words`, and
-for the batched data plane `gf256_scale_planes`, `xor_reduce_groups_words`);
+launches the CUDA kernels (`gf256_matmul_bytes`, `xor_reduce_words`, and
+for the batched data plane `gf256_scale_bytes`, `xor_reduce_groups_words`);
 a CPU tensor takes their plain PyTorch versions through the same wrappers;
 `use_kernel=False` picks the plain byte-domain version explicitly. The
 byte contracts are those of the JAX package's `kernels/ops.py`, and every
-output stays on its input's device. Bit-slicing at the boundary
-(`bitplane.pack` / `unpack`) is plain torch on the device.
+output stays on its input's device. The GF(256) kernels work on the bytes
+themselves: nothing is bit-sliced on the way (the bit-plane kernels
+`gf256_matmul_planes` / `gf256_scale_planes` keep the Pallas contract
+and are on no path here).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.ec import bitplane
 from repro_torch.kernels import ref
-from repro_torch.kernels.gf256_matmul import (gf256_matmul_planes,
-                                              gf256_scale_planes)
+from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,
+                                              gf256_scale_bytes)
 from repro_torch.kernels.xor_reduce import (xor_reduce_groups_words,
                                             xor_reduce_words)
 
@@ -35,18 +36,16 @@ def gf256_matmul(
 ) -> torch.Tensor:
     """(m, k) uint8 GF coefficients x (k, nbytes) uint8 -> (m, nbytes) uint8.
 
-    The workhorse of RS encode / decode / repair-term premultiplication.
-    `coeff` is a host array (it parametrizes the bit-matrix masks).
+    The workhorse of RS encode / decode / repair-term premultiplication:
+    one `gf256_matmul_bytes` launch. `coeff` is a host array (it
+    parametrizes the kernel's column words). A `data` view that is not
+    contiguous is copied once (`.contiguous()`) before the launch.
     """
     _check_bytes(data, "data")
     coeff = np.asarray(coeff, dtype=np.uint8)
     if not use_kernel:
         return ref.gf256_matmul_bytes_ref(coeff, data)
-    nbytes = data.shape[-1]
-    masks = bitplane.coeff_to_masks(coeff, data.device)
-    planes = bitplane.pack(data)
-    out_planes = gf256_matmul_planes(masks, planes)
-    return bitplane.unpack(out_planes, nbytes)
+    return gf256_matmul_bytes(coeff, data.contiguous())
 
 
 def xor_reduce(chunks: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
@@ -78,8 +77,9 @@ def gf256_scale_batch(
     by its own coefficient.
 
     The batched data-plane premultiply: one call covers every (job, helper)
-    chunk of a plan batch, one `gf256_scale_planes` launch over an
-    (M, W/256) grid. `coeffs` is a host array (it parametrizes the masks).
+    chunk of a plan batch, one `gf256_scale_bytes` launch with one block
+    row per chunk. `coeffs` is a host array (it parametrizes the column
+    words). A `data` view that is not contiguous is copied once first.
     """
     _check_bytes(data, "data")
     coeffs = np.asarray(coeffs, dtype=np.uint8).reshape(-1)
@@ -87,10 +87,7 @@ def gf256_scale_batch(
         raise ValueError(f"{coeffs.size} coeffs for {data.shape[0]} rows")
     if coeffs.size == 0 or not use_kernel:
         return ref.gf256_scale_batch_ref(coeffs, data)
-    nbytes = data.shape[-1]
-    masks = bitplane.coeff_to_masks(coeffs[:, None], data.device)
-    out_planes = gf256_scale_planes(masks, bitplane.pack(data))
-    return bitplane.unpack(out_planes, nbytes)
+    return gf256_scale_bytes(coeffs, data.contiguous())
 
 
 def xor_reduce_segments(

@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the CUDA kernels.
 
 Two *independent* formulations:
-  * byte domain — dense `MUL_TABLE` Galois multiply + XOR accumulate,
-  * plane domain — the same bit-matrix math as the kernel, in plain torch.
+  * byte domain — dense `MUL_TABLE` Galois multiply + XOR accumulate, the
+    plain versions of the byte kernels `gf256_matmul_bytes` and
+    `gf256_scale_bytes`,
+  * plane domain — the same bit-matrix math as the plane kernels, in
+    plain torch.
 The numpy ground truth is `ec.gf256.gf_matmul_np`.
 
-The kernel wrappers take the plane-domain versions for a tensor that lies
-on the CPU; on the card they are what `chip_smoke.py` holds each kernel
-against. Nothing on the main path calls them when a card is present.
+The kernel wrappers take these versions for a tensor that lies on the
+CPU; on the card they are what `chip_smoke.py` holds each kernel against.
+Nothing on the main path calls them when a card is present.
 """
 from __future__ import annotations
 
