@@ -17,6 +17,13 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    calls), the plain and library times 20 calls back to back; the
    byte-domain GF(256) kernels also at misaligned row offsets and against
    the plane route (`bitplane.pack`, plane kernel, `unpack`);
+   `xor_reduce_words` in both its forms, a (k, W) tensor and k separate
+   rows, at k up to 33 (chained launches), rows at word offsets 0, 1 and
+   3, and on ragged byte rows through `ops.xor_reduce`; at 128 MiB rows
+   (k = 2 and 3, both forms); the two-row folds (`xor_reduce_words`,
+   the grouped fold at G=4 K=2) and their `torch.bitwise_xor` yardstick
+   in turns, each by the profiler (the means of two windows: fold,
+   yardstick, yardstick, fold) and the yardstick by events too;
 3. the serial repair path at full size: the repair-demo scenario (RS(6,3)
    on the Aliyun Table III matrix under markov churn, 128 MB chunks)
    planned and simulated for every single-failure scheme, a 128 MiB-per-
@@ -25,7 +32,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    counters (and calls of `bitplane.pack` / `unpack`, which must be 0)
    are set to 0 just before and read just after; then one more repair is
    traced with torch.profiler (device time by kernel, the device's idle
-   share; no bit-slicing op may show);
+   share; no bit-slicing op may show, nor a `torch.stack` copy
+   (`CatArray`) before a fold);
 4. small-input checks: every scheme's plan executed on the card equals the
    CPU plain path byte for byte and verifies, serially and as one mixed
    batch (all 8 schemes, failures (0,) and (0, 4), 4099 bytes);
@@ -70,7 +78,8 @@ from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
                                               gf256_matmul_planes,
                                               gf256_scale_bytes,
                                               gf256_scale_planes)
-from repro_torch.kernels.xor_reduce import (xor_reduce_groups_words,  # noqa: E402
+from repro_torch.kernels.xor_reduce import (chain_plan,  # noqa: E402
+                                            xor_reduce_groups_words,
                                             xor_reduce_words)
 
 MIB = 1 << 20
@@ -492,35 +501,122 @@ def check_groups(peaks, words, table, timed, label):
                    bound_ms=bms, bound_by=by, bytes=nbytes,
                    rows_read=rows, groups=g)
         if table is None and words.shape[1] == 2:   # the one-call yardstick
-            rec["library_ms"] = cuda_ms(
-                lambda: torch.bitwise_xor(words[:, 0], words[:, 1]))
+            add_xor_yardstick(rec, lambda: xor_reduce_groups_words(words),
+                              "xor_reduce_groups", words[:, 0], words[:, 1])
         else:
             rec["library_ms"] = None
     return rec
 
 
-def check_xor(rng, peaks, k, w, timed):
-    words = random_words(rng, (k, w))
+def add_xor_yardstick(rec: dict, fn, label: str, a: torch.Tensor,
+                      b: torch.Tensor) -> None:
+    """Time a two-row fold `fn` (its kernel's name holds `label`) against
+    its one-call yardstick `torch.bitwise_xor(a, b)`, never used by the
+    port, into `rec`: each kernel alone (profiler) in two windows, in turns
+    (fold, yardstick, yardstick, fold), so that a drift of the card falls
+    on both alike; on an H100 the first window after heavier work ran
+    2-3 % slow. `ms` and `library_ms` become the means of the pairs (the
+    window `kernel_times` took first is kept as `ms_first_window`); the
+    yardstick is also timed back to back by CUDA events."""
+    def yardstick():
+        return torch.bitwise_xor(a, b)
+
+    f1, _ = kernel_device_ms(fn, label)
+    y1, _ = kernel_device_ms(yardstick, "BitwiseXor")
+    y2, _ = kernel_device_ms(yardstick, "BitwiseXor")
+    f2, _ = kernel_device_ms(fn, label)
+    rec.update(ms_first_window=rec["ms"], ms=(f1 + f2) / 2,
+               ms_in_turns=[f1, f2], library_ms=(y1 + y2) / 2,
+               library_ms_in_turns=[y1, y2],
+               library_ms_events=cuda_ms(yardstick))
+
+
+def rows_on_card(host: np.ndarray, offsets, dtype) -> list[torch.Tensor]:
+    """Row i of `host` on the card as a view `offsets[i % len(offsets)]`
+    elements into an allocation of its own."""
+    rows = []
+    for i, row in enumerate(host):
+        off = offsets[i % len(offsets)]
+        big = torch.zeros(off + row.size + 3, dtype=dtype, device="cuda")
+        big[off:off + row.size] = torch.from_numpy(row).cuda()
+        rows.append(big[off:off + row.size])
+    return rows
+
+
+def check_xor(rng, k, w, offsets) -> dict:
+    """`xor_reduce_words` in both forms against its plain version, bit for
+    bit: the dense (k, W) form as a view `offsets[0]` words into a larger
+    tensor, the rows form with row i `offsets[i % len]` words into its own
+    allocation; each call launches once per step of `chain_plan(k)`."""
+    host = rng.integers(-(1 << 31), 1 << 31, size=(k, w), dtype=np.int32)
+    off = offsets[0]
+    big = torch.zeros(off + k * w + 3, dtype=torch.int32, device="cuda")
+    big[off:off + k * w] = torch.from_numpy(host.reshape(-1)).cuda()
+    dense = big[off:off + k * w].view(k, w)
+    rows = rows_on_card(host, offsets, torch.int32)
+    want = ref.xor_reduce_ref(dense)
+    before = xor_reduce_words.launches
+    by_dense, by_rows = xor_reduce_words(dense), xor_reduce_words(rows)
+    torch.cuda.synchronize()
+    launched = xor_reduce_words.launches - before
+    rec = dict(kernel="xor_reduce_words",
+               shape=f"k={k} W={w} word offsets={offsets}",
+               max_abs_err=max(max_abs_err(by_dense, want),
+                               max_abs_err(by_rows, want)))
+    if rec["max_abs_err"] != 0 or launched != 2 * len(chain_plan(k)):
+        raise AssertionError(f"xor_reduce_words disagrees: {rec}, "
+                             f"{launched} launches")
+    return rec
+
+
+def check_xor_bytes(rng, k, n, offsets) -> dict:
+    """`ops.xor_reduce` on k uint8 rows of n bytes, row i `offsets[i % len]`
+    bytes into its own allocation (the head, tail and misaligned paths of
+    the kernel), against the plain version, bit for bit."""
+    host = rng.integers(0, 256, size=(k, n), dtype=np.uint8)
+    rows = rows_on_card(host, offsets, torch.uint8)
+    got = ops.xor_reduce(rows)
+    torch.cuda.synchronize()
+    rec = dict(kernel="xor_reduce_words",
+               shape=f"ops.xor_reduce k={k} nbytes={n} byte offsets={offsets}",
+               max_abs_err=max_abs_err(got, ref.xor_reduce_ref(rows)))
+    if rec["max_abs_err"] != 0 or not np.array_equal(
+            got.cpu().numpy(), np.bitwise_xor.reduce(host, axis=0)):
+        raise AssertionError(f"ops.xor_reduce disagrees: {rec}")
+    return rec
+
+
+def time_xor(peaks, k, form) -> dict:
+    """`xor_reduce_words` on k rows of 128 MiB, as one (k, W) tensor
+    (`form="dense"`) or as k separate allocations (`"rows"`, the serial
+    repair's form), checked against its plain version and timed; at k = 2
+    beside the `torch.bitwise_xor` yardstick. Bound: each row read once,
+    the output written once."""
+    dense = device_words(17, (k, W_WORDS))
+    words = dense if form == "dense" else [row.clone() for row in dense]
+    if form == "rows":
+        del dense
     got = xor_reduce_words(words)
     torch.cuda.synchronize()
     want = ref.xor_reduce_ref(words)
-    torch.cuda.synchronize()
-    rec = dict(kernel="xor_reduce_words", shape=f"k={k} W={w}",
+    rec = dict(kernel="xor_reduce_words", shape=f"k={k} W={W_WORDS} {form}",
                max_abs_err=max_abs_err(got, want))
     if rec["max_abs_err"] != 0:
         raise AssertionError(f"xor_reduce_words disagrees: {rec}")
-    if timed:
-        nbytes = 4 * w * (k + 1)
-        bms, by = bound(nbytes, (k - 1) * w, peaks)
-        rec.update(**kernel_times(lambda: xor_reduce_words(words),
-                                  "xor_reduce_words"),
-                   plain_ms=cuda_ms(lambda: ref.xor_reduce_ref(words)),
-                   bound_ms=bms, bound_by=by, bytes=nbytes)
-        if k == 2:   # the yardstick: one PyTorch call, never used by the port
-            rec["library_ms"] = cuda_ms(
-                lambda: torch.bitwise_xor(words[0], words[1]))
-        else:
-            rec["library_ms"] = None
+    del got, want
+    nbytes = 4 * W_WORDS * (k + 1)
+    bms, by = bound(nbytes, (k - 1) * W_WORDS, peaks)
+    rec.update(**kernel_times(lambda: xor_reduce_words(words),
+                              "xor_reduce_words"),
+               plain_ms=cuda_ms(lambda: ref.xor_reduce_ref(words)),
+               bound_ms=bms, bound_by=by, bytes=nbytes)
+    if k == 2:
+        add_xor_yardstick(rec, lambda: xor_reduce_words(words),
+                          "xor_reduce_words", words[0], words[1])
+    else:
+        rec["library_ms"] = None
+    del words
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -561,10 +657,12 @@ PACK_LABELS = ("sum_functor", "lshift", "rshift", "BitwiseAndFunctor",
                "BitwiseOrFunctor")
 
 
-def profile_repair(repair, phase: str = "profile_repair") -> dict:
+def profile_repair(repair, phase: str = "profile_repair",
+                   forbid: tuple = ()) -> dict:
     """One repair under torch.profiler: device kernel time by label, and the
     device's idle share of the repair's wall time (one stream: kernels do
-    not overlap, so busy time is their sum)."""
+    not overlap, so busy time is their sum). Raises if a label of `forbid`
+    or of the bit-slicing shows."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -586,6 +684,9 @@ def profile_repair(repair, phase: str = "profile_repair") -> dict:
     if packing:
         raise AssertionError(f"{phase}: bit-slicing ops on the card: "
                              f"{packing}")
+    shown = sorted(set(by_label) & set(forbid))
+    if shown:
+        raise AssertionError(f"{phase}: {shown} on the card: {by_label}")
     rec = dict(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=1.0 - busy_ms / wall_ms,
                device_ms_by_label=dict(sorted(by_label.items(),
@@ -642,10 +743,11 @@ def main_path(records: list) -> dict:
         raise AssertionError(f"BMF repair not verified: {ex.verified}")
     if not np.array_equal(lost[:head].cpu().numpy(), data_np[0, :head]):
         raise AssertionError("repaired block (first 4 MiB) != lost data")
-    # the encode and one premultiply per helper, in bytes; no plane kernel
+    # the encode and one premultiply per helper, in bytes; no plane kernel;
+    # one fold of two buffers for each helper but the first of a job
     helpers = sum(len(job.helpers) for job in bmf.plan.jobs)
     if (launches["gf256_matmul_bytes"] != 1 + helpers
-            or launches["xor_reduce_words"] <= 0
+            or launches["xor_reduce_words"] != helpers - len(bmf.plan.jobs)
             or launches["gf256_matmul_planes"] or launches["gf256_scale_planes"]
             or launches["gf256_scale_bytes"]
             or launches["xor_reduce_groups_words"]):
@@ -678,7 +780,8 @@ def main_path(records: list) -> dict:
                bmf_log=bmf.log)
     print(json.dumps(rec))
     records.append(rec)
-    records.append(profile_repair(repair))
+    # the fold reads its two buffers in place: no `torch.stack` copy
+    records.append(profile_repair(repair, forbid=("CatArray",)))
     del data, codeword, ex, lost
     torch.cuda.empty_cache()
     return launches
@@ -861,11 +964,16 @@ def main() -> None:
             rec = check_gf256(rng, peaks, m, k, w, timed=False)
             errs["gf256_matmul_planes"] = max(errs["gf256_matmul_planes"],
                                               rec["max_abs_err"])
-    for k in (2, 5):
+    # the fold in both forms, chained past KMAX rows, at word offsets 0, 1
+    # and 3 (alike and mixed), then on ragged and misaligned byte rows
+    for k in (2, 3, 5, 16, 17, 33):
         for w in (1, 513, 1024):
-            rec = check_xor(rng, peaks, k, w, timed=False)
-            errs["xor_reduce_words"] = max(errs["xor_reduce_words"],
-                                           rec["max_abs_err"])
+            for offsets in ((0,), (1,), (3,), (1, 3, 0)):
+                records.append(check_xor(rng, k, w, offsets))
+    for k in (2, 3, 17):
+        for n in (1, 33, 4099, 4096, 4112):
+            for offsets in ((0,), (3,), (0, 1, 3)):
+                records.append(check_xor_bytes(rng, k, n, offsets))
     # main-path shapes: the helper premultiply (1,1) and the RS(6,3) encode
     # (3,3) at 128 MiB blocks, plus a six-data-block encode (3,6)
     for m, k in ((1, 1), (3, 3), (3, 6)):
@@ -874,11 +982,12 @@ def main() -> None:
         records.append(rec)
         timed.setdefault("gf256_matmul_planes", rec)   # (1,1) is the repair's
         torch.cuda.empty_cache()
-    rec = check_xor(rng, peaks, 2, W_WORDS, timed=True)
-    print(json.dumps(rec))
-    records.append(rec)
-    timed["xor_reduce_words"] = rec
-    torch.cuda.empty_cache()
+    for k in (2, 3):
+        for form in ("rows", "dense"):
+            rec = time_xor(peaks, k, form)
+            print(json.dumps(rec))
+            records.append(rec)
+            timed.setdefault("xor_reduce_words", rec)   # k=2 rows: the repair's
 
     # the batched data plane's kernels: CPU-test shapes, then full width
     for m in (1, 5):
@@ -966,7 +1075,8 @@ def main() -> None:
             max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], shape=t["shape"]))
+            library_ms=t["library_ms"],
+            library_ms_events=t.get("library_ms_events"), shape=t["shape"]))
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.json:

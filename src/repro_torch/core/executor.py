@@ -5,9 +5,10 @@ plan serially: every helper holds a real chunk (a uint8 tensor on the
 device), premultiplies its Galois coefficient through `ops.gf256_matmul`
 (the `gf256_matmul_bytes` CUDA kernel on the card), transfers move buffers
 between per-(job, node) stores, and merges XOR through `ops.xor_reduce`
-(the `xor_reduce_words` kernel). Relay nodes only buffer (the paper:
-forwarding nodes do not compute). At the end the requestor's buffer must
-equal the lost block bit-for-bit.
+(the `xor_reduce_words` kernel, which reads the held buffer and the
+arriving one where they lie: nothing is stacked). Relay nodes only
+buffer (the paper: forwarding nodes do not compute). At the end the
+requestor's buffer must equal the lost block bit-for-bit.
 
 **Invariant:** plans must be `validate_plan`-clean. The executor implements
 store-and-forward faithfully — a source's buffer is consumed when it
@@ -126,8 +127,7 @@ def execute_plan(
                 store[(job_id, dst)] = payload
             else:
                 store[(job_id, dst)] = ops.xor_reduce(
-                    torch.stack([existing, payload]), use_kernel=use_kernel
-                )
+                    (existing, payload), use_kernel=use_kernel)
 
     recon: dict[int, torch.Tensor] = {}
     ok = True

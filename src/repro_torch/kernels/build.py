@@ -96,8 +96,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gf256_matmul_planes_launch.argtypes = [p, p, p, i32, i32, i64, p]
     lib.gf256_matmul_planes_launch.restype = i32
-    lib.xor_reduce_words_launch.argtypes = [p, p, i32, i64, p]
-    lib.xor_reduce_words_launch.restype = i32
+    lib.xor_reduce_rows_launch.argtypes = [ctypes.POINTER(p), i32, p, i64, p]
+    lib.xor_reduce_rows_launch.restype = i32
     lib.gf256_scale_planes_launch.argtypes = [p, p, p, i32, i64, p]
     lib.gf256_scale_planes_launch.restype = i32
     lib.xor_reduce_groups_launch.argtypes = [p, p, p, i32, i32, i64, p]

@@ -1,19 +1,43 @@
-// XOR-reduce k rows of 32-bit words into one, for sm_90a.
+// XOR-reduce k rows into one, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `xor_reduce_words`
 // (src/repro/kernels/xor_reduce.py, body `_kernel`):
 //
-//   out[w] = XOR_i words[i, w]        words (k, W) -> out (W,), contiguous
+//   out[p] = XOR_i row_i[p]        k rows of n bytes -> out, n bytes
 //
-// What bounds it on the H100: one XOR per input word, so (k + 1) * 4 bytes
-// of device memory per output word bound it; the operations are negligible.
+// The rows are read where they lie: a launch takes up to kMaxRows row
+// pointers in a struct passed by value, so a caller folds separate tensors
+// without stacking them into one first, and the Pallas contract (k, W)
+// words -> (W,) is the same kernel given the k row starts of the tensor.
+// More rows than kMaxRows fold in chained launches, which the host plans
+// (`chain_plan` in kernels/xor_reduce.py): the output of one launch is row
+// 0 of the next, read and written in place, each unit by the one thread
+// that owns it, all its loads before its store.
 //
-// Design: a grid-stride loop over the output, one 16-byte `uint4` (4 words)
-// per thread and step when W is a multiple of 4 and both pointers are
-// 16-byte aligned (neighbouring threads on neighbouring 16 bytes: the
-// widest coalesced load), else one word per thread. Each thread loops over
-// the k rows and keeps the running XOR in registers; the grid is sized to a
-// few waves of blocks on the card's SMs, not to W.
+// What bounds it on the H100: (k + 1) * n bytes of device memory (each row
+// read once, the output written once); one XOR per input byte is
+// negligible.
+//
+// Design: every pointer of a launch is in one alignment class, the largest
+// g of 16, 4 and 1 such that all rows and the output start at the same
+// address mod g. The bytes [head, head + g * units) that are g-aligned in
+// every row go as units of g bytes (`uint4`, a word or a byte), one unit a
+// thread: the grid is sized from the row length (unit j = block * kThreads
+// + thread, neighbouring threads on neighbouring units, coalesced), so no
+// thread makes a second pass and only the last block has threads past the
+// end. For k <= 4 the row count is a template parameter: a thread issues
+// its k loads before the first XOR. Loads and stores take the streaming
+// cache policy (`__ldcs` / `__stcs`): every byte is touched once. The at
+// most 2 * (g - 1) bytes outside the units, the unaligned head and the
+// ragged tail, go one byte a thread in the last block of the same launch,
+// never past n.
+// Blocks are small (4 KiB of each row at g = 16), so that the block
+// scheduler balances the work over the SMs as they drain. On an H100, at
+// two 128 MiB rows, the designs that fix each SM's share up front measured
+// slower (scripts/bench_xor_designs.py): one contiguous run a block by
+// 6-7 %, a TMA ring of shared-memory stages (one persistent block an SM)
+// by 4-6 %, the grid-stride loop this kernel replaced by 5-6 %; 2 or 4
+// units a thread (all loads before the first XOR) by 0-0.4 %.
 //
 // The same file holds the grouped fold that replaces the Pallas kernel
 // `xor_reduce_groups_words` (src/repro/kernels/xor_reduce.py, body
@@ -39,48 +63,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
-
-__global__ void __launch_bounds__(kThreads)
-xor_reduce_words_vec4(const uint4* __restrict__ in, uint4* __restrict__ out,
-                      int k, long long n4) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n4;
-       j += stride) {
-    uint4 acc = in[j];
-    for (int i = 1; i < k; ++i) {
-      const uint4 v = in[(size_t)i * n4 + j];
-      acc.x ^= v.x;
-      acc.y ^= v.y;
-      acc.z ^= v.z;
-      acc.w ^= v.w;
-    }
-    out[j] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-xor_reduce_words_scalar(const uint32_t* __restrict__ in,
-                        uint32_t* __restrict__ out, int k, long long W) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < W;
-       j += stride) {
-    uint32_t acc = in[j];
-    for (int i = 1; i < k; ++i) acc ^= in[(size_t)i * W + j];
-    out[j] = acc;
-  }
-}
+constexpr int kMaxRows = 16;     // rows a launch folds: KMAX in xor_reduce.py
 
 int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms;
-}
-
-int grid_for(long long n) {
-  const long long want = (n + kThreads - 1) / kThreads;
-  const long long cap = (long long)sm_count() * 8;   // 8 blocks of 256 per SM
-  return (int)(want < cap ? want : cap);
 }
 
 __device__ __forceinline__ uint4 xor_of(const uint4 a, const uint4 b) {
@@ -124,22 +113,102 @@ void launch_groups(const V* in, const long long* groups, V* out, int G, int K,
                                 stream>>>(in, groups, out, G, K, n);
 }
 
+__device__ __forceinline__ uint8_t xor_of(const uint8_t a, const uint8_t b) {
+  return (uint8_t)(a ^ b);
+}
+
+struct RowPtrs {
+  const uint8_t* p[kMaxRows];
+};
+
+// units of T start `head` bytes into every row; unit j of the output is the
+// XOR of unit j of the k rows (K = k when K > 0, else k is read at run time)
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+xor_reduce_words_kernel(const __grid_constant__ RowPtrs rows, int k,
+                        uint8_t* out, long long n, long long head,
+                        long long units) {
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (j < units) {
+    T acc;
+    if constexpr (K > 0) {
+      T v[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        v[i] = __ldcs(reinterpret_cast<const T*>(rows.p[i] + head) + j);
+      acc = v[0];
+#pragma unroll
+      for (int i = 1; i < K; ++i) acc = xor_of(acc, v[i]);
+    } else {
+      acc = __ldcs(reinterpret_cast<const T*>(rows.p[0] + head) + j);
+#pragma unroll 4
+      for (int i = 1; i < k; ++i)
+        acc = xor_of(acc, __ldcs(reinterpret_cast<const T*>(rows.p[i] + head) + j));
+    }
+    __stcs(reinterpret_cast<T*>(out + head) + j, acc);
+  }
+  // the head [0, head) and the tail [head + units * sizeof(T), n): fewer
+  // than 2 * sizeof(T) bytes, one a thread of the last block
+  if (blockIdx.x == gridDim.x - 1) {
+    const long long tail_lo = head + units * (long long)sizeof(T);
+    const long long t = threadIdx.x;
+    const long long p = t < head ? t : tail_lo + (t - head);
+    if (p < n) {
+      uint8_t acc = rows.p[0][p];
+      for (int i = 1; i < k; ++i) acc ^= rows.p[i][p];
+      out[p] = acc;
+    }
+  }
+}
+
+template <typename T, int K>
+int launch_rows_as(const RowPtrs& rows, int k, uint8_t* out, long long n,
+                   long long head, long long units, cudaStream_t stream) {
+  long long blocks = (units + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;      // the head and tail bytes alone
+  xor_reduce_words_kernel<T, K><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      rows, k, out, n, head, units);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rows(const RowPtrs& rows, int k, uint8_t* out, long long n,
+                long long head, long long units, cudaStream_t stream) {
+  switch (k) {
+    case 1: return launch_rows_as<T, 1>(rows, k, out, n, head, units, stream);
+    case 2: return launch_rows_as<T, 2>(rows, k, out, n, head, units, stream);
+    case 3: return launch_rows_as<T, 3>(rows, k, out, n, head, units, stream);
+    case 4: return launch_rows_as<T, 4>(rows, k, out, n, head, units, stream);
+    default: return launch_rows_as<T, 0>(rows, k, out, n, head, units, stream);
+  }
+}
+
 }  // namespace
 
-extern "C" int xor_reduce_words_launch(const void* words, void* out, int k,
-                                       long long W, void* stream) {
-  if (k <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  const bool vec = (W % 4 == 0) && ((uintptr_t)words % 16 == 0) &&
-                   ((uintptr_t)out % 16 == 0);
-  if (vec) {
-    const long long n4 = W / 4;
-    xor_reduce_words_vec4<<<grid_for(n4), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint4*)words, (uint4*)out, k, n4);
-  } else {
-    xor_reduce_words_scalar<<<grid_for(W), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (uint32_t*)out, k, W);
+// rows: a host array of k (1 <= k <= kMaxRows) device pointers, each to n
+// readable bytes; out: n writable bytes, which may be rows[0] (a chained
+// launch) but overlap no other row.
+extern "C" int xor_reduce_rows_launch(const void* const* rows, int k,
+                                      void* out, long long n, void* stream) {
+  if (k <= 0 || k > kMaxRows || n <= 0) return (int)cudaErrorInvalidValue;
+  RowPtrs ptrs = {};
+  const uintptr_t o = (uintptr_t)out;
+  bool same16 = true, same4 = true;
+  for (int i = 0; i < k; ++i) {
+    const uintptr_t a = (uintptr_t)rows[i];
+    ptrs.p[i] = (const uint8_t*)rows[i];
+    same16 = same16 && a % 16 == o % 16;
+    same4 = same4 && a % 4 == o % 4;
   }
-  return (int)cudaGetLastError();
+  const long long g = same16 ? 16 : same4 ? 4 : 1;
+  long long head = (g - (long long)(o % g)) % g;
+  if (head > n) head = n;
+  const long long units = (n - head) / g;
+  uint8_t* y = (uint8_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (g == 16) return launch_rows<uint4>(ptrs, k, y, n, head, units, s);
+  if (g == 4) return launch_rows<uint32_t>(ptrs, k, y, n, head, units, s);
+  return launch_rows<uint8_t>(ptrs, k, y, n, head, units, s);
 }
 
 extern "C" int xor_reduce_groups_launch(const void* words, const void* groups,

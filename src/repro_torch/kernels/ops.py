@@ -19,8 +19,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,
                                               gf256_scale_bytes)
-from repro_torch.kernels.xor_reduce import (xor_reduce_groups_words,
-                                            xor_reduce_words)
+from repro_torch.kernels.xor_reduce import (as_rows, fold_rows,
+                                            xor_reduce_groups_words)
 
 
 def _check_bytes(x: torch.Tensor, name: str) -> None:
@@ -48,23 +48,20 @@ def gf256_matmul(
     return gf256_matmul_bytes(coeff, data.contiguous())
 
 
-def xor_reduce(chunks: torch.Tensor, *, use_kernel: bool = True) -> torch.Tensor:
-    """(k, nbytes) uint8 -> (nbytes,) uint8 XOR of all chunks."""
-    _check_bytes(chunks, "chunks")
-    if chunks.shape[0] == 1:
-        return chunks[0]
+def xor_reduce(chunks, *, use_kernel: bool = True) -> torch.Tensor:
+    """(k, nbytes) uint8, or a sequence of k (nbytes,) uint8 rows ->
+    (nbytes,) uint8 XOR of all chunks.
+
+    One `xor_reduce_words` launch (for up to `KMAX` rows) reads the rows
+    where they lie: separate tensors are not stacked, and a ragged
+    `nbytes` is not padded. Every row must be contiguous.
+    """
+    rows = as_rows(chunks, torch.uint8, "chunks")
+    if len(rows) == 1:
+        return rows[0]
     if not use_kernel:
-        out = chunks[0]
-        for i in range(1, chunks.shape[0]):
-            out = out ^ chunks[i]
-        return out
-    nbytes = chunks.shape[-1]
-    pad = -nbytes % 4
-    if pad:
-        chunks = torch.nn.functional.pad(chunks, (0, pad))
-    words = chunks.contiguous().view(torch.int32)          # (k, W)
-    out = xor_reduce_words(words)
-    return out.view(torch.uint8)[:nbytes]
+        return ref.xor_reduce_ref(rows)
+    return fold_rows(rows)
 
 
 def gf256_scale_batch(

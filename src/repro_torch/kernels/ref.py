@@ -63,11 +63,12 @@ def gf256_matmul_planes_ref(masks: torch.Tensor, planes: torch.Tensor) -> torch.
     return torch.stack(outs)
 
 
-def xor_reduce_ref(words: torch.Tensor) -> torch.Tensor:
-    """(k, W) int32 -> (W,) int32: plain version of `xor_reduce_words`."""
+def xor_reduce_ref(words) -> torch.Tensor:
+    """(k, W) or a sequence of k (W,) rows -> (W,): plain version of
+    `xor_reduce_words` (int32 words) and of its byte form (uint8)."""
     out = words[0].clone()
-    for i in range(1, words.shape[0]):
-        out ^= words[i]
+    for row in words[1:]:
+        out ^= row
     return out
 
 

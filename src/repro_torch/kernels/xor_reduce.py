@@ -1,12 +1,18 @@
-"""XOR-reduce k chunks into one: the CUDA kernel's wrapper.
+"""XOR-reduce k rows into one: the CUDA kernels' wrappers.
 
 The PPR / BMFRepair aggregation step: helper partial results (already Galois-
-premultiplied, c_i (*) B_i) combine by plain XOR. Operates on raw 32-bit
-words (no bit-slicing needed: XOR is byte-order agnostic). On a CUDA tensor
-the wrapper launches the hand-written kernel in `csrc/xor_reduce.cu`; on a
-CPU tensor it takes the plain version `ref.xor_reduce_ref`.
+premultiplied, c_i (*) B_i) combine by plain XOR. Operates on the raw bytes
+(no bit-slicing needed: XOR is byte-order agnostic). The kernel in
+`csrc/xor_reduce.cu` reads each row where it lies, from up to `KMAX` row
+pointers a launch, so separate tensors fold without being stacked into one;
+more rows fold in chained launches (`chain_plan`). On a CUDA tensor the
+wrappers launch it; on a CPU tensor they take the plain version
+`ref.xor_reduce_ref`.
 """
 from __future__ import annotations
+
+import ctypes
+from collections.abc import Sequence
 
 import numpy as np
 import torch
@@ -14,32 +20,93 @@ import torch
 from repro_torch.device import host_to_device
 from repro_torch.kernels import build, ref
 
+KMAX = 16        # rows one launch folds: kMaxRows in csrc/xor_reduce.cu
 
-def xor_reduce_words(words: torch.Tensor) -> torch.Tensor:
-    """(k, W) int32 -> (W,) int32 running XOR.
 
-    Each CUDA launch adds one to `xor_reduce_words.launches`.
+def chain_plan(k: int) -> list[list[int]]:
+    """The launches that fold k rows, at most `KMAX` a launch: each a list
+    of row indices, where -1 stands for the output of the launches before
+    (always first, so it is row 0 of its launch)."""
+    if k <= 0:
+        raise ValueError(f"cannot fold {k} rows")
+    plan = [list(range(min(k, KMAX)))]
+    while plan[-1][-1] < k - 1:
+        start = plan[-1][-1] + 1
+        plan.append([-1, *range(start, min(k, start + KMAX - 1))])
+    return plan
+
+
+def as_rows(rows, dtype: torch.dtype, name: str = "rows") -> list[torch.Tensor]:
+    """A (k, n) tensor or a sequence of k (n,) tensors -> the k rows.
+
+    Every row has `dtype`, one length and one device, and is contiguous
+    (a (k, n) tensor may have any row stride); no copy is made. Raises
+    TypeError for something that is not a tensor, else ValueError.
     """
-    if words.dtype != torch.int32 or words.dim() != 2 or words.shape[0] == 0:
-        raise ValueError(f"words must be (k>=1, W) int32, got "
-                         f"{tuple(words.shape)} {words.dtype}")
-    if words.device.type == "cpu":
-        return ref.xor_reduce_ref(words)
-    if words.device.type != "cuda":
-        raise ValueError(f"no kernel for device {words.device}")
-    if not words.is_contiguous():
-        raise ValueError("words must be contiguous")
-    k, w = words.shape
-    out = torch.empty((w,), dtype=torch.int32, device=words.device)
-    if w == 0:
+    if isinstance(rows, torch.Tensor):
+        if rows.dim() != 2:
+            raise ValueError(f"{name} must be (k, n) or a sequence of (n,) "
+                             f"rows, got shape {tuple(rows.shape)}")
+        rows = list(rows.unbind(0))
+    elif isinstance(rows, Sequence):
+        rows = list(rows)
+    else:
+        raise TypeError(f"{name} must be a torch tensor or a sequence of "
+                        f"them, got {type(rows).__name__}")
+    if not rows:
+        raise ValueError(f"{name}: no rows")
+    first = rows[0]
+    for i, row in enumerate(rows):
+        if not isinstance(row, torch.Tensor):
+            raise TypeError(f"{name}[{i}] is a {type(row).__name__}, not a "
+                            "torch tensor")
+        if row.dtype != dtype or row.dim() != 1:
+            raise ValueError(f"{name}[{i}] must be a 1-D {dtype} tensor, "
+                             f"got {tuple(row.shape)} {row.dtype}")
+        if row.shape != first.shape or row.device != first.device:
+            raise ValueError(f"{name}[{i}] is {tuple(row.shape)} on "
+                             f"{row.device}, {name}[0] {tuple(first.shape)} "
+                             f"on {first.device}")
+        if not row.is_contiguous():
+            raise ValueError(f"{name}[{i}] is strided (stride "
+                             f"{row.stride()[0]}); rows must be contiguous")
+    return rows
+
+
+def fold_rows(rows: list[torch.Tensor]) -> torch.Tensor:
+    """XOR of rows that `as_rows` checked, of any dtype: the plain version
+    on the CPU, else the kernel on their bytes, in the launches of
+    `chain_plan`, each counted on `xor_reduce_words.launches`."""
+    device = rows[0].device
+    if device.type == "cpu":
+        return ref.xor_reduce_ref(rows)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    out = torch.empty_like(rows[0])
+    nbytes = out.numel() * out.element_size()
+    if nbytes == 0:
         return out
     lib = build.load_library().lib
-    with torch.cuda.device(words.device):
+    ptrs = [row.data_ptr() for row in rows]
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(lib.xor_reduce_words_launch(
-            words.data_ptr(), out.data_ptr(), k, w, stream), "xor_reduce_words")
-    xor_reduce_words.launches += 1
+        for step in chain_plan(len(rows)):
+            args = [out.data_ptr() if i < 0 else ptrs[i] for i in step]
+            build.check_launch(lib.xor_reduce_rows_launch(
+                (ctypes.c_void_p * len(args))(*args), len(args),
+                out.data_ptr(), nbytes, stream), "xor_reduce_words")
+            xor_reduce_words.launches += 1
     return out
+
+
+def xor_reduce_words(words) -> torch.Tensor:
+    """(k, W) int32, or a sequence of k (W,) int32 rows -> (W,) int32
+    running XOR. The rows are read where they lie.
+
+    Each CUDA launch adds one to `xor_reduce_words.launches` (one launch
+    for up to `KMAX` rows).
+    """
+    return fold_rows(as_rows(words, torch.int32, "words"))
 
 
 xor_reduce_words.launches = 0
