@@ -43,7 +43,26 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    just before and read just after; wall time (first call, median of 5),
    peak device memory, and one torch.profiler trace; then the same at
    B=8 (the four schemes twice: HDFS's default of 8 EC reconstruction
-   threads per DataNode).
+   threads per DataNode);
+6. the Monte-Carlo repair sweep (`repro_torch.sim.sweep.run_sweep`) at the
+   sizes the JAX package's sweep benchmarks run: the paper's Table II
+   suite (1024 two-failure RS(7,4) cases frozen to 64-epoch traces), the
+   stress suite (512 single-failure RS(14,10) 1024 MB cases frozen to
+   256-epoch traces) and a live suite (128 such cases of 256 MB chunks
+   under markov churn, four schemes), each through `executor="device"`
+   (the torch device
+   stepper on the card) and `executor="vectorized"` (numpy on the host);
+   a frozen suite is built once and replayed by every run, the live one
+   is built anew for each run (its epochs are sampled inside the run).
+   Fails if a case's rounds, relay hops or time (1e-6 rtol) differ
+   between the two, if any batch ran on the host steppers, if the live
+   suite never grew its epoch horizon, if `verify_bytes=16` verifies not
+   every pair, or if the sweep's launches (counters set to 0 just before,
+   read just after) are not one `gf256_scale_bytes` and one
+   `xor_reduce_groups_words` per data-plane round; prints wall time and
+   cases/s of both executors (median of 3, in turns), host syncs, horizon
+   doublings, and one torch.profiler trace of each device sweep (device
+   busy time, idle share, top kernels).
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -65,7 +84,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import executor, topology  # noqa: E402
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel  # noqa: E402
-from repro_torch.core.engine import dataplane  # noqa: E402
+from repro_torch.core.engine import dataplane, device_stepper  # noqa: E402
 from repro_torch.core.engine.arrays import compile_plan, decompile  # noqa: E402
 from repro_torch.core.ppt import build_ppt_tree, ppt_round_plan  # noqa: E402
 from repro_torch.core.simulator import (MULTI_SCHEMES, SINGLE_SCHEMES,  # noqa: E402
@@ -81,6 +100,9 @@ from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
 from repro_torch.kernels.xor_reduce import (chain_plan,  # noqa: E402
                                             xor_reduce_groups_words,
                                             xor_reduce_words)
+from repro_torch.sim.suite import (MonteCarloSuite, SampleSpace,  # noqa: E402
+                                   TraceSuite)
+from repro_torch.sim.sweep import run_sweep  # noqa: E402
 
 MIB = 1 << 20
 BLOCK_BYTES = 128 * MIB            # the paper's 128 MB chunk; HDFS block size
@@ -91,6 +113,27 @@ PROFILE_ATTEMPTS = 3
 HEAD = 4 * MIB                     # bytes compared with the host's copy
 BATCHES = (4, 8)                   # phase 5: stripes in one batched repair
 BATCH_SCHEMES = ("traditional", "ppr", "bmf", "ppt")
+SWEEP_REPEATS = 3                  # phase 6: timed runs of each executor
+SWEEP_VERIFY = 16                  # phase 6: cases byte-verified per sweep
+# phase 6's suites: the parameters of the JAX package's sweep benchmarks
+# (benchmarks/bench_table2.py:23-32, bench_sweep.py:62-73), copied since
+# the benchmarks import that package. The live suite is the stress suite
+# unfrozen, at HDFS's common 256 MB block size and with the four
+# single-failure schemes (BMF replans, so a horizon overflow rolls its
+# splices back): its repairs outrun the first 64-epoch horizon, and 128
+# cases keep every batch's epoch stack under the stepper's budget up to a
+# 1024-epoch horizon.
+SWEEP_SUITES = {
+    "table2_trace": dict(cases=1024, code=(7, 4), chunk_mb=32.0,
+                         pattern="double", base_seed=0, epochs=64,
+                         schemes=("mppr", "random", "msrepair")),
+    "stress_trace": dict(cases=512, code=(14, 10), chunk_mb=1024.0,
+                         pattern="single", base_seed=17, epochs=256,
+                         schemes=("traditional", "ppr")),
+    "stress_live": dict(cases=128, code=(14, 10), chunk_mb=256.0,
+                        pattern="single", base_seed=17, epochs=None,
+                        schemes=("traditional", "ppr", "ppt", "bmf")),
+}
 
 KERNELS = {
     "gf256_matmul_planes": dict(
@@ -936,6 +979,159 @@ def batched_path(records: list, batch: int) -> dict:
     return launches
 
 
+def make_suite(name: str):
+    """A phase-6 suite: 14 nodes under hot (2 s markov) churn; frozen to
+    recorded traces where `epochs` is set."""
+    p = SWEEP_SUITES[name]
+    space = SampleSpace(codes=(p["code"],), cluster_sizes=(14,),
+                        chunk_mb=(p["chunk_mb"],), regimes=("hot2s",),
+                        failure_patterns=(p["pattern"],))
+    live = MonteCarloSuite(name, p["cases"], space, schemes=p["schemes"],
+                           base_seed=p["base_seed"])
+    if p["epochs"] is None:
+        return live
+    return TraceSuite.freeze(live, num_epochs=p["epochs"], name=name)
+
+
+def sweep_max_rel_err(got, want, name: str) -> float:
+    """Raises unless every case and scheme has the same rounds and relay
+    hops and a time within 1e-6 rtol; returns the largest relative error."""
+    worst = 0.0
+    for cg, cw in zip(got.cases, want.cases, strict=True):
+        if set(cg.results) != set(cw.results):
+            raise AssertionError(f"{name} case {cw.index}: schemes differ")
+        for s, rw in cw.results.items():
+            rg = cg.results[s]
+            rel = abs(rg.total_time - rw.total_time) / abs(rw.total_time)
+            if (rg.num_rounds != rw.num_rounds
+                    or rg.relay_hops != rw.relay_hops or not rel <= 1e-6):
+                raise AssertionError(
+                    f"{name} case {cw.index} {s}: device "
+                    f"({rg.num_rounds}, {rg.relay_hops}, {rg.total_time!r}) "
+                    f"!= vectorized ({rw.num_rounds}, {rw.relay_hops}, "
+                    f"{rw.total_time!r})")
+            worst = max(worst, rel)
+    return worst
+
+
+def profile_device(fn, phase: str) -> dict:
+    """One call of `fn` under torch.profiler: device busy time (kernels of
+    one stream do not overlap, so it is their sum), the idle share of the
+    wall time, kernel launches and the kernels that took the most time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tic) * 1e3
+    by_name: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        rec = by_name.setdefault(ev.name[:80], [0, 0.0])
+        rec[0] += 1
+        rec[1] += ev.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in by_name.values())
+    if busy_ms <= 0:
+        raise AssertionError(f"{phase}: no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(phase=phase, wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                device_kernels=sum(n for n, _ in by_name.values()),
+                top_kernels_ms={k: ms for k, (_, ms) in top})
+
+
+def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
+    """Phase 6 for one suite: checks, timings and a trace; returns the
+    launches of its byte-verified device sweep."""
+    counts = device_stepper.COUNTS
+    p = SWEEP_SUITES[name]
+    start = time.perf_counter()
+    frozen = make_suite(name) if p["epochs"] else None
+    build_s = time.perf_counter() - start
+
+    def suite():
+        return frozen or make_suite(name)
+
+    vec = run_sweep(suite(), executor="vectorized")
+    reset_launches()
+    counts.reset()
+    dev = run_sweep(suite(), executor="device",
+                    verify_bytes=SWEEP_VERIFY, device=device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    checked = counts.as_dict()
+    worst = sweep_max_rel_err(dev, vec, name)
+    bv = dev.byte_verification
+    if not bv.verified or len({i for i, _ in bv.checked}) != SWEEP_VERIFY:
+        raise AssertionError(f"{name}: byte verification {bv}")
+    # one data-plane call: one premultiply, one segment fold per round
+    want = {k: 0 for k in WRAPPERS}
+    want.update(gf256_scale_bytes=1, xor_reduce_groups_words=bv.rounds)
+    if launches != want:
+        raise AssertionError(f"{name}: sweep launches {launches} != {want}")
+    if checked["host_batches"] or not checked["device_batches"]:
+        raise AssertionError(f"{name}: batch routes {checked}")
+    if p["epochs"] is None and not checked["horizon_grows"]:
+        raise AssertionError(f"{name}: the live suite never grew its "
+                             f"epoch horizon: {checked}")
+
+    walls: dict[str, list] = {"vectorized": [], "device": []}
+    timed_counts = []
+    for i in range(SWEEP_REPEATS):        # in turns: v, d, d, v, v, d
+        for ex in (("vectorized", "device") if i % 2 == 0
+                   else ("device", "vectorized")):
+            runs_on = suite()
+            counts.reset()
+            tic = time.perf_counter()
+            run_sweep(runs_on, executor=ex, device=device)
+            torch.cuda.synchronize()
+            walls[ex].append(time.perf_counter() - tic)
+            if ex == "device":
+                timed_counts.append(counts.as_dict())
+                if counts.host_batches:
+                    raise AssertionError(f"{name}: host batches {counts}")
+    runs_on = suite()
+    counts.reset()
+    prof = profile_device(lambda: run_sweep(runs_on, executor="device",
+                                            device=device),
+                          f"profile_sweep_{name}")
+    if counts.host_batches:
+        raise AssertionError(f"{name}: host batches {counts}")
+    prof.update(counts=counts.as_dict())
+    cases = len(vec.cases)
+    wall = {ex: statistics.median(w) for ex, w in walls.items()}
+    rec = dict(phase="sweep", suite=name, cases=cases,
+               schemes=list(p["schemes"]), epochs=p["epochs"],
+               build_s=build_s, phase_s=time.perf_counter() - start,
+               max_rel_err=worst, wall_s_median_of_3=wall, wall_s_all=walls,
+               cases_per_s={ex: cases / w for ex, w in wall.items()},
+               device_over_vectorized=wall["vectorized"] / wall["device"],
+               counts_checked_run=checked, counts_timed_runs=timed_counts,
+               planning_s={ex: sum(r.planning_time for c in sw.cases
+                                   for r in c.results.values())
+                           for ex, sw in (("vectorized", vec),
+                                          ("device", dev))},
+               byte_verification=dict(pairs=len(bv.checked), nbytes=bv.nbytes,
+                                      verified=bv.verified,
+                                      rounds=bv.rounds),
+               launches=launches, profile=prof)
+    print(json.dumps(rec))
+    records.append(rec)
+    return launches
+
+
+def sweep_phase(records: list, device: str = "cuda") -> dict:
+    """Phase 6: the three suites; returns their summed launches."""
+    total = {k: 0 for k in WRAPPERS}
+    for name in SWEEP_SUITES:
+        for k, n in sweep_suite(records, name, device).items():
+            total[k] += n
+    return total
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -1056,9 +1252,11 @@ def main() -> None:
     serial_launches = main_path(records)
     small_checks(records)
     batch_launches = [batched_path(records, b) for b in BATCHES]
+    sweep_launches = sweep_phase(records)
     print(json.dumps({"launches": {"serial": serial_launches,
                                    **{f"batched_b{b}": lc for b, lc in
-                                      zip(BATCHES, batch_launches)}}}))
+                                      zip(BATCHES, batch_launches)},
+                                   "sweep": sweep_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
     # B=4 (a new dict: the phases' records keep their own counts); the
     # plane kernels run on no path
@@ -1072,6 +1270,7 @@ def main() -> None:
         t = timed[kname]
         kernels.append(dict(
             name=kname, **meta, launches=launches[kname],
+            launches_sweep=sweep_launches[kname],
             max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],

@@ -214,9 +214,9 @@ class BandwidthProcess:
         sequence (epochs `[0, num_epochs)`), bit-identical to
         `sample_epochs(num_epochs)`.
 
-        This is the bulk substrate for device-resident epoch stacks (the
-        reference's `core/engine/jax_stepper.py`): the stack is sampled once per
-        process instance and shared across every scheme/batch that
+        This is the bulk substrate for device-resident epoch stacks
+        (`repro_torch.core.engine.device_stepper`): the stack is sampled once
+        per process instance and shared across every scheme/batch that
         replays the same case, and a longer request *extends* the cached
         prefix in place of resampling it (`sample_epochs` is
         epoch-addressable, so the extension is the identical tail).

@@ -66,6 +66,7 @@ class BatchExecutionResult:
     reconstructed: list[dict[int, torch.Tensor]]  # per case: job_id -> bytes
     verified: np.ndarray                           # (B,) bool — every job exact
     bytes_moved: np.ndarray                        # (B,) int64
+    rounds: int = 0                                # segment folds run
 
     @property
     def all_verified(self) -> bool:
@@ -308,4 +309,4 @@ def execute_plans_batch(
         case_of = np.repeat(np.arange(B), [pa.num_jobs for pa in pas])
         np.logical_and.at(verified, case_of, ok)
     return BatchExecutionResult(reconstructed=recon, verified=verified,
-                                bytes_moved=bytes_moved)
+                                bytes_moved=bytes_moved, rounds=len(steps))

@@ -97,8 +97,8 @@ def execute_round(
     """Advance simulated time until all transfers of a round complete.
 
     State is index-based (parallel lists over the transfer index), the
-    scalar sibling of the batched `(B, T)` arrays of the reference's
-    `core/engine/vectorized.py::execute_round_batch`.
+    scalar sibling of the batched `(B, T)` arrays in
+    `repro_torch.core.engine.vectorized.execute_round_batch`.
     """
     hops = [list(zip(tr.path[:-1], tr.path[1:])) for tr in transfers]
     n_hops = [len(h) for h in hops]
@@ -150,8 +150,9 @@ def pipeline_fill_latency(
 ) -> float:
     """Pipeline-fill latency of PPT's deepest path at the t=0 snapshot.
 
-    Shared by `execute_pipeline` and the batched engine (the reference's
-    `core/engine/vectorized.py`) so the two stay expression-identical.
+    Shared by `execute_pipeline` and the batched engine
+    (`repro_torch.core.engine.vectorized`) so the two stay
+    expression-identical.
     """
     depth = max(tree.depths().values(), default=0)
     bn0 = max(tree.assumed_bottleneck(bw0), _EPS)
@@ -276,7 +277,7 @@ def run_scheme(
     """Plan + execute one scheme on one scenario.
 
     This is the shared round engine: `RepairSimulator.run` wraps it for the
-    legacy single-scenario path and the reference's sweep calls it per
+    legacy single-scenario path and `repro_torch.sim.sweep` calls it per
     (scenario, scheme) work item. Results are a pure function of
     (scenario, scheme, bmf_optimize_all, random_seed) — only
     `planning_time` is wall-clock and may vary between runs.

@@ -159,6 +159,28 @@ def test_mixed_batch_matches_reference_and_serial_case_by_case(nbytes, rng):
             assert torch.equal(blk, got.reconstructed[b][jid])
 
 
+def test_batch_result_counts_its_segment_folds(rng, monkeypatch):
+    """`rounds` is the number of segment folds the call ran: one per
+    non-empty round of the batch."""
+    pas, codes, cws = [], [], []
+    for i, ((n, k), failed, scheme, cluster) in enumerate(MIXED):
+        pa, _ = _plans(n, k, failed, scheme, seed=20 + i, cluster=cluster)
+        pas.append(pa)
+        codes.append(RSCode(n, k))
+        cws.append(_codeword(rng, n, k, 64))
+    folds = []
+    plain = dataplane.ops.xor_reduce_segments
+
+    def counted(*args, **kw):
+        folds.append(1)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(dataplane.ops, "xor_reduce_segments", counted)
+    got = dataplane.execute_plans_batch(pas, codes, cws, device="cpu")
+    assert got.all_verified
+    assert got.rounds == len(folds) == max(pa.num_rounds for pa in pas) > 1
+
+
 def _matrix():
     """Deterministic stand-in for the reference's hypothesis sweep: codes x
     failure patterns x schemes x seeds."""
