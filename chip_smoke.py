@@ -20,7 +20,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    `xor_reduce_words` in both its forms, a (k, W) tensor and k separate
    rows, at k up to 33 (chained launches), rows at word offsets 0, 1 and
    3, and on ragged byte rows through `ops.xor_reduce`; at 128 MiB rows
-   (k = 2 and 3, both forms); the two-row folds (`xor_reduce_words`,
+   (k = 2 and 3, both forms); `gf256_matmul_bytes` also at phase 7's
+   checkpoint encode, (2, 4) over 3,451 stripes of 256 KiB (3.62e9 bytes
+   in, 1.81e9 out); the two-row folds (`xor_reduce_words`,
    the grouped fold at G=4 K=2) and their `torch.bitwise_xor` yardstick
    in turns, each by the profiler (the means of two windows: fold,
    yardstick, yardstick, fold) and the yardstick by events too;
@@ -62,7 +64,27 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    `xor_reduce_groups_words` per data-plane round; prints wall time and
    cases/s of both executors (median of 3, in turns), host syncs, horizon
    doublings, and one torch.profiler trace of each device sweep (device
-   busy time, idle share, top kernels).
+   busy time, idle share, top kernels);
+7. the EC-checkpointed trainer at full width: first the free disk space
+   of the temporary checkpoint directory is checked (2.5 x 5.43e9 bytes,
+   or it raises); then `repro_torch.launch.train.run` trains smollm_360m
+   (32 layers, d=960) at B=8, T=1024 for 8 steps, saves asynchronously at
+   step 4, loses failure domains (1, 5) at step 6, repairs the step-4
+   checkpoint, resumes and saves at the end; the final checkpoint is
+   loaded twice, with domains (3,) and (1, 5) lost, and every leaf is
+   compared with the state in memory byte for byte on the card; the
+   counters are set to 0 just before the run and each load and read
+   just after: the run launches one `gf256_matmul_bytes` per save and one
+   per stripe that lost a data block, each load one per such stripe
+   (3,451 and 1,725 at full width), no other kernel and no bit-slicing;
+   the loss of one more step from the restored state must equal the
+   in-memory state's within 1e-5; prints each step's loss, time and
+   tokens/s, each save's stages (snapshot, layout, encode, device-to-host
+   copy, CRC, write; host clock), the repairs, peak device memory, and
+   the save's encode kernel (timed in phase 2) beside its bound, and one
+   steady train step traced with torch.profiler (device busy time by
+   kernel kind, idle share, top kernels). The checkpoint directory is
+   removed.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -71,9 +93,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -82,6 +106,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import tree  # noqa: E402
 from repro_torch.core import executor, topology  # noqa: E402
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel  # noqa: E402
 from repro_torch.core.engine import dataplane, device_stepper  # noqa: E402
@@ -89,7 +114,9 @@ from repro_torch.core.engine.arrays import compile_plan, decompile  # noqa: E402
 from repro_torch.core.ppt import build_ppt_tree, ppt_round_plan  # noqa: E402
 from repro_torch.core.simulator import (MULTI_SCHEMES, SINGLE_SCHEMES,  # noqa: E402
                                         RepairSimulator, Scenario)
+from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.ec import bitplane, gf256  # noqa: E402
+from repro_torch.ec import stripe as stripe_lib  # noqa: E402
 from repro_torch.ec.rs import RSCode  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import load_library  # noqa: E402
@@ -100,9 +127,11 @@ from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
 from repro_torch.kernels.xor_reduce import (chain_plan,  # noqa: E402
                                             xor_reduce_groups_words,
                                             xor_reduce_words)
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.sim.suite import (MonteCarloSuite, SampleSpace,  # noqa: E402
                                    TraceSuite)
 from repro_torch.sim.sweep import run_sweep  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 MIB = 1 << 20
 BLOCK_BYTES = 128 * MIB            # the paper's 128 MB chunk; HDFS block size
@@ -134,6 +163,26 @@ SWEEP_SUITES = {
                         pattern="single", base_seed=17, epochs=None,
                         schemes=("traditional", "ppr", "ppt", "bmf")),
 }
+# phase 7: the train launcher at smollm_360m's full width; its checkpoints
+# are RS(6,4) at 256 KiB chunks on 8 failure domains, 5.43e9 bytes of
+# domain files a save (3,618,211,204 bytes of state in 3,451 stripes)
+TRAIN_ARGS = ["--arch", "smollm_360m", "--full", "--seq-len", "1024",
+              "--batch", "8", "--steps", "8", "--ckpt-every", "4",
+              "--fail-at", "6", "--microbatches", "1"]
+CKPT_BYTES = 5.43e9
+CKPT_STRIPES, CKPT_CHUNK = 3451, 1 << 18
+TRAIN_LOSSES = ((3,), (1, 5))      # domains lost by the two checked loads
+# the traced train step's kernels by kind (cuBLAS fp32 GEMMs are the
+# unembedding's; its bf16 GEMMs are the `nvjet` / `cutlass` ones)
+TRAIN_STEP_GROUPS = (
+    ("attention (sdpa)", ("flash", "fmha", "attention")),
+    ("gemm fp32", ("f32f32", "sgemm")),
+    ("gemm bf16", ("nvjet", "gemm", "cutlass")),
+    ("reduce", ("reduce_kernel",)),
+    ("copy / cast", ("copy",)),
+    ("index / embedding", ("index", "embedding", "gather", "scatter")),
+    ("elementwise", ("elementwise",)),
+)
 
 KERNELS = {
     "gf256_matmul_planes": dict(
@@ -1014,10 +1063,13 @@ def sweep_max_rel_err(got, want, name: str) -> float:
     return worst
 
 
-def profile_device(fn, phase: str) -> dict:
+def profile_device(fn, phase: str, groups: tuple = ()) -> dict:
     """One call of `fn` under torch.profiler: device busy time (kernels of
     one stream do not overlap, so it is their sum), the idle share of the
-    wall time, kernel launches and the kernels that took the most time."""
+    wall time, kernel launches and the kernels that took the most time;
+    with `groups`, (label, name substrings) pairs, also the device time
+    and kernels of each label (a kernel goes to the first that matches,
+    else to "other")."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -1037,10 +1089,22 @@ def profile_device(fn, phase: str) -> dict:
     if busy_ms <= 0:
         raise AssertionError(f"{phase}: no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return dict(phase=phase, wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1.0 - busy_ms / wall_ms,
-                device_kernels=sum(n for n, _ in by_name.values()),
-                top_kernels_ms={k: ms for k, (_, ms) in top})
+    rec = dict(phase=phase, wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+               device_idle_share=1.0 - busy_ms / wall_ms,
+               device_kernels=sum(n for n, _ in by_name.values()),
+               top_kernels_ms={k: ms for k, (_, ms) in top})
+    if groups:
+        by_label: dict[str, list] = {}
+        for name, (n, ms) in by_name.items():
+            label = next((lb for lb, keys in groups
+                          if any(key in name for key in keys)), "other")
+            acc = by_label.setdefault(label, [0, 0.0])
+            acc[0] += n
+            acc[1] += ms
+        rec["device_ms_by_label"] = {
+            lb: dict(kernels=n, ms=ms) for lb, (n, ms) in
+            sorted(by_label.items(), key=lambda kv: -kv[1][1])}
+    return rec
 
 
 def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
@@ -1132,6 +1196,173 @@ def sweep_phase(records: list, device: str = "cuda") -> dict:
     return total
 
 
+def lost_data_stripes(num_stripes: int, lost: tuple) -> int:
+    """Stripes of an RS(6,4) checkpoint on 8 domains that lose a data
+    block with the domains `lost` (the RAID-5 rotation of
+    `ec/stripe.py`): the repair launches one reconstruct for each."""
+    code = RSCode(6, 4)
+    return sum(any(s.node_ids[b] in lost for b in range(code.k))
+               for s in stripe_lib.place_stripes(num_stripes, code, 8))
+
+
+def same_bytes(a, b) -> bool:
+    """Two train states equal leaf by leaf, byte for byte, where they lie."""
+    pa, pb = tree.items(a), tree.items(b)
+    return [p for p, _ in pa] == [p for p, _ in pb] and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.device == y.device
+        and torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def train_phase(records: list, enc: dict, device: str = "cuda") -> dict:
+    """Phase 7: `repro_torch.launch.train.run` at full width (trains,
+    saves async, loses domains (1, 5) at step 6, repairs, resumes, saves
+    at the end), then the final checkpoint loaded twice and the resume's
+    loss checked; `enc` is phase 2's record of the encode kernel at the
+    save's shape. Returns the phase's record."""
+    start = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        free = shutil.disk_usage(work).free
+        if free < 2.5 * CKPT_BYTES:
+            raise RuntimeError(f"phase 7 needs {2.5 * CKPT_BYTES:.4g} bytes "
+                               f"free in {work}, has {free}")
+        argv = [*TRAIN_ARGS, "--ckpt-dir", str(work), "--device", device]
+        args = train_launch.parse_args(argv)
+        cfg, shape, tcfg = train_launch.configs(args)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        state, recs = train_launch.run(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - tic
+        run_launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+
+        steps = [r for r in recs if r["event"] == "step"]
+        saves = [r for r in recs if r["event"] == "save"]
+        repair, = [r for r in recs if r["event"] == "repair"]
+        losses = [r["loss"] for r in steps]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"phase 7: a loss is not finite: {losses}")
+        tokens = args.batch * args.seq_len
+        for r in steps:
+            print(f"   step {r['step']}: loss {r['loss']!r} "
+                  f"{r['seconds'] * 1e3:.1f} ms "
+                  f"({tokens / r['seconds']:.0f} tokens/s)")
+        later = [r["seconds"] for r in steps[1:]]
+        print(f"   first step {steps[0]['seconds']:.3f} s, median of the "
+              f"rest {statistics.median(later):.3f} s "
+              f"({tokens / statistics.median(later):.0f} tokens/s), peak "
+              f"device memory {peak} bytes")
+        for r in saves:
+            print(f"   save {r['step']}: " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in r["seconds"].items())
+                + f" (the encode kernel alone: {enc['ms']:.4f} ms by the "
+                f"profiler, bound {enc['bound_ms']:.4f} ms)")
+        print(f"   repair at step {repair['step']}: {repair}")
+
+        ck = train_launch.checkpointer(args, device)
+        final = ck.latest_step()
+        manifest = json.loads(
+            (Path(ck._step_dir(final)) / "manifest.json").read_text())
+        stripes = manifest["num_stripes"]
+        if (stripes, manifest["chunk_bytes"]) != (CKPT_STRIPES, CKPT_CHUNK):
+            raise AssertionError(f"phase 7: {stripes} stripes of "
+                                 f"{manifest['chunk_bytes']} bytes, phase 2 "
+                                 f"timed {CKPT_STRIPES} of {CKPT_CHUNK}")
+        # the run: one encode a save, one reconstruct a stripe that lost
+        # a data block at the injected failure
+        want = {k: 0 for k in WRAPPERS}
+        want["gf256_matmul_bytes"] = len(saves) + lost_data_stripes(
+            stripes, (1, 5))
+        if (run_launches != want
+                or repair["stripes_repaired"] != lost_data_stripes(stripes,
+                                                                   (1, 5))
+                or repair["blocks_repaired"] != repair["stripes_repaired"]):
+            raise AssertionError(f"phase 7 run: launches {run_launches} != "
+                                 f"{want}, repair {repair}")
+
+        # domains that hold no block count as lost too (a small state)
+        held = {d for st in stripe_lib.place_stripes(stripes, RSCode(6, 4), 8)
+                for d in st.node_ids}
+        loads, restored = {}, None
+        for lost in TRAIN_LOSSES:
+            reset_launches()
+            tic = time.perf_counter()
+            restored, report = ck.load(state, lost_domains=lost)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - tic
+            launches = read_launches()
+            want = {k: 0 for k in WRAPPERS}
+            want["gf256_matmul_bytes"] = lost_data_stripes(stripes, lost)
+            if (launches != want
+                    or report.blocks_repaired != want["gf256_matmul_bytes"]
+                    or report.stripes_repaired != want["gf256_matmul_bytes"]
+                    or report.lost_domains != tuple(
+                        sorted(set(lost) | (set(range(8)) - held)))
+                    or not (report.sim and report.sim.total_time > 0)):
+                raise AssertionError(f"phase 7 load {lost}: launches "
+                                     f"{launches} != {want}, {report}")
+            if not same_bytes(restored, state):
+                raise AssertionError(f"phase 7 load {lost}: a leaf differs "
+                                     "from the state in memory")
+            loads[str(lost)] = dict(
+                launches=launches["gf256_matmul_bytes"],
+                blocks_repaired=report.blocks_repaired,
+                stripes_repaired=report.stripes_repaired,
+                sim_total_time=float(report.sim.total_time),
+                repair_wall_s=report.wall_seconds, load_wall_s=wall,
+                stages_s=dict(ck.last_load))
+            print(f"   load {lost}: {json.dumps(loads[str(lost)])}")
+
+        # resume: one more step from the restored state and from the state
+        # in memory, on the same batch; the forward pass is deterministic
+        step_fn = make_train_step(cfg, tcfg)
+        batch = SyntheticStream(cfg, shape).batch_at(args.steps)
+        loss_restored = float(step_fn(restored, batch)[1]["loss"])
+        loss_memory = float(step_fn(state, batch)[1]["loss"])
+        if not abs(loss_restored - loss_memory) < 1e-5:
+            raise AssertionError(f"phase 7 resume: loss {loss_restored!r} "
+                                 f"from the restored state, {loss_memory!r} "
+                                 "from the state in memory")
+        del restored
+        # where a steady step's time goes on the card
+        traced = profile_device(lambda: step_fn(state, batch),
+                                "profile_train_step", TRAIN_STEP_GROUPS)
+        print(json.dumps(traced))
+        del state
+        torch.cuda.empty_cache()
+        rec = dict(
+            phase="train_checkpoint", argv=TRAIN_ARGS,
+            state_bytes=manifest["total_bytes"], num_stripes=stripes,
+            step_s=[r["seconds"] for r in steps],
+            steps_trained=[r["step"] for r in steps],
+            first_step_s=steps[0]["seconds"],
+            median_step_s=statistics.median(later),
+            tokens_per_s_median=tokens / statistics.median(later),
+            losses=losses, max_memory_allocated=peak, run_wall_s=run_s,
+            saves=saves, repair=repair, run_launches=run_launches,
+            loads=loads, resume_loss=dict(restored=loss_restored,
+                                          memory=loss_memory),
+            encode_kernel=dict(shape=enc["shape"], ms=enc["ms"],
+                               bound_ms=enc["bound_ms"],
+                               bound_by=enc["bound_by"],
+                               plain_ms=enc["plain_ms"],
+                               max_abs_err=enc["max_abs_err"]),
+            profile=traced,
+            launches={"run": run_launches,
+                      **{f"load_{lost}": v["launches"]
+                         for lost, v in loads.items()}},
+            phase_s=time.perf_counter() - start)
+        print(json.dumps(rec))
+        records.append(rec)
+        return rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -1143,7 +1374,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     smi = nvidia_smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name} "
+          f"({smi})")
     peaks = peak_rates(name)
     records: list = [dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
                           **peaks)]
@@ -1246,6 +1478,13 @@ def main() -> None:
     records.append(rec)
     timed["gf256_scale_bytes"] = rec
     torch.cuda.empty_cache()
+    # phase 7's save: the (2, 4) encode over all 3,451 stripes at once
+    # (timed here: in late phases the profiler was seen to lose records)
+    checkpoint_encode = check_matmul_bytes(rng, peaks, 2, 4,
+                                           CKPT_STRIPES * CKPT_CHUNK, True)
+    print(json.dumps(checkpoint_encode))
+    records.append(checkpoint_encode)
+    torch.cuda.empty_cache()
     for rec in records[1:]:
         errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
 
@@ -1253,10 +1492,13 @@ def main() -> None:
     small_checks(records)
     batch_launches = [batched_path(records, b) for b in BATCHES]
     sweep_launches = sweep_phase(records)
+    train = train_phase(records, checkpoint_encode)
+    train_launches = train["launches"]
     print(json.dumps({"launches": {"serial": serial_launches,
                                    **{f"batched_b{b}": lc for b, lc in
                                       zip(BATCHES, batch_launches)},
-                                   "sweep": sweep_launches}}))
+                                   "sweep": sweep_launches,
+                                   "train_checkpoint": train_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
     # B=4 (a new dict: the phases' records keep their own counts); the
     # plane kernels run on no path
@@ -1271,6 +1513,10 @@ def main() -> None:
         kernels.append(dict(
             name=kname, **meta, launches=launches[kname],
             launches_sweep=sweep_launches[kname],
+            launches_checkpoint={
+                "run": train_launches["run"][kname],
+                **{k: (v if kname == "gf256_matmul_bytes" else 0)
+                   for k, v in train_launches.items() if k != "run"}},
             max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],

@@ -217,9 +217,9 @@ def _case_plan_arrays(
     terms: np.ndarray,         # (T,) uint64
 ) -> PlanArrays:
     """Assemble one case's `PlanArrays` from pre-lowered column arrays —
-    the single construction path of `plan_arrays_from_schedule` (and of
-    the JAX package's batched `lower_schedules_batch`, which passes slices
-    of its concatenated buffers; not ported yet)."""
+    the single construction path of `plan_arrays_from_schedule` and of
+    the batched `lower_schedules_batch` (`planner_arrays.py`), which
+    passes slices of its concatenated buffers."""
     return PlanArrays(
         **job_fields,
         t_src=ints[:, 0],

@@ -1,0 +1,40 @@
+"""Logical-axis sharding rules: the single-device half.
+
+The JAX package names every parameter and activation dimension by a
+logical axis ("d", "tp", "batch", "seq" or None) and `MeshRules` maps the
+names onto a device mesh. This port runs on one device, so only the
+no-mesh rules exist here: `NO_MESH` replicates everything and `constrain`
+/ `tree_constrain` return their input. The mesh half (`spec`, `sharding`,
+`kv_cache_axes`, the logical trees) waits for the multi-device slice
+(ROADMAP item 17h).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    mesh: None = None
+    fsdp: tuple[str, ...] = ("data",)
+    tensor: str = "model"
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "device meshes are not ported yet (ROADMAP item 17h)")
+
+    def constrain(self, x: torch.Tensor, logical: tuple) -> torch.Tensor:
+        """A sharding constraint by logical names: the identity off-mesh."""
+        return x
+
+
+# Default rules: no mesh, everything replicated, constraints no-op.
+NO_MESH = MeshRules(mesh=None)
+
+
+def tree_constrain(rules: MeshRules, tree, logical_tree):
+    """Sharding constraints over a whole tree: the identity off-mesh."""
+    return tree

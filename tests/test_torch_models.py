@@ -1,0 +1,317 @@
+"""The port's dense model, held against repro on the CPU.
+
+Inputs come from numpy seeds; params are the reference's random init,
+converted with `convert.state_from_reference`. Tolerances, stated per
+test, come from the arithmetic both sides share:
+
+* the chunked attention rounds q, k, v and the probabilities to bf16 as
+  the reference does, so it matches to fp32 rounding (1e-5);
+* the fused route (`causal_self_attention`) keeps the probabilities in
+  the kernel's own precision: 1e-2 on unit-scale inputs, or 2 bf16 ulps
+  of the output for bf16 inputs;
+* gradients: the reference's custom VJP rounds its backward products to
+  bf16; the port's autograd does not, so both are held to the naive fp32
+  attention at `tests/test_attention.py`'s 0.06 and to each other at the
+  same bound;
+* whole models: `unembed` rounds its inputs to bf16 on both sides, which
+  bounds both tolerances: an fp32 difference of 1e-6 in the final
+  activations can round one of them to the neighbouring bf16 value and
+  move a logit by ~1e-3. So a `dtype="float32"` variant (attention by the
+  chunked route) holds to 2e-3 on logits of magnitude ~4 and 5e-5 on the
+  loss; the stock bf16 config to 0.1 on logits (~6 bf16 ulps: every
+  layer's output is rounded to bf16 on both sides, in different orders)
+  and 5e-3 on the loss.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jget_arch
+from repro.models import layers as JL
+from repro.models import model as JM
+from repro.models import transformer as JT
+from repro_torch import convert, tree
+from repro_torch.configs import get_arch
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _maxdiff(a, b) -> float:
+    return float(np.max(np.abs(_np(a) - _np(b))))
+
+
+def _qkv(b=2, t=33, h=4, kv=2, hd=16, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, t, h, hd)).astype(np.float32)
+    k = rng.standard_normal((b, t, kv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, t, kv, hd)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(t, dtype=np.int32)[None], (b, t)).copy()
+    return q, k, v, pos
+
+
+def naive(q, k, v, q_pos, kv_pos, causal=True, window=0):
+    """fp32 attention with explicit masks (tests/test_attention.py's)."""
+    b, tq, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.float().reshape(b, tq, k.shape[2], g, hd)
+    s = torch.einsum("btkgh,bskh->bkgts", qf, k.float()) / np.sqrt(hd)
+    valid = kv_pos[:, None, None, None, :] >= 0
+    if causal:
+        valid = valid & (kv_pos[:, None, None, None, :]
+                         <= q_pos[:, None, None, :, None])
+    if window > 0:
+        valid = valid & (kv_pos[:, None, None, None, :] > (
+            q_pos[:, None, None, :, None] - window))
+    p = torch.softmax(torch.where(valid, s, -torch.inf), dim=-1)
+    p = torch.nan_to_num(p)
+    return torch.einsum("bkgts,bskh->btkgh", p, v.float()).reshape(b, tq, h, hd)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_rms_norm_and_rope(dtype):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    scale = rng.standard_normal(16).astype(np.float32) * 0.1
+    pos = rng.integers(0, 500, size=(2, 5)).astype(np.int32)
+    jx, tx = jnp.asarray(x), _t(x)
+    if dtype == "bfloat16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.bfloat16()
+    tol = 1e-6 if dtype == np.float32 else 2 ** -7 * 4   # 1 bf16 ulp at |x|<4
+    got = L.rms_norm(tx, _t(scale), 1e-6)
+    assert got.dtype == tx.dtype
+    assert _maxdiff(got, JL.rms_norm(jx, jnp.asarray(scale), 1e-6)) <= tol
+    got = L.apply_rope(tx, _t(pos), 10_000.0)
+    assert got.dtype == tx.dtype
+    assert _maxdiff(got, JL.apply_rope(jx, jnp.asarray(pos), 10_000.0)) \
+        <= tol + 1e-5                                    # cos/sin at |angle|<500
+    assert _maxdiff(L.rope_freqs(16, 1e6), JL.rope_freqs(16, 1e6)) < 1e-9
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 33])
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("kv", [1, 2, 4])
+def test_chunked_attention_matches_reference(chunk, window, kv):
+    q, k, v, pos = _qkv(kv=kv)
+    got = L.chunked_attention(_t(q), _t(k), _t(v), q_pos=_t(pos),
+                              kv_pos=_t(pos), window=window, chunk=chunk)
+    want = JL.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), q_pos=jnp.asarray(pos),
+                                kv_pos=jnp.asarray(pos), window=window,
+                                chunk=chunk)
+    assert _maxdiff(got, want) < 1e-5
+    assert _maxdiff(got, naive(_t(q), _t(k), _t(v), _t(pos), _t(pos),
+                               window=window)) < 0.03
+
+
+@pytest.mark.parametrize("kv", [1, 2, 4])
+def test_fused_route_matches_reference(kv):
+    q, k, v, pos = _qkv(kv=kv)
+    want = JL.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), q_pos=jnp.asarray(pos),
+                                kv_pos=jnp.asarray(pos), chunk=8)
+    got = L.causal_self_attention(_t(q), _t(k), _t(v))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert _maxdiff(got, want) < 1e-2
+    want = JL.chunked_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        q_pos=jnp.asarray(pos), kv_pos=jnp.asarray(pos), chunk=8)
+    got = L.causal_self_attention(*(_t(a).bfloat16() for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    assert _maxdiff(got, want) <= 2 * 2 ** -8 * 2        # 2 ulps at |o| < 2
+
+
+def _grads_ref(q, k, v, pos, window):
+    def f(q, k, v):
+        return JL.chunked_attention(
+            q, k, v, q_pos=jnp.asarray(pos), kv_pos=jnp.asarray(pos),
+            window=window, chunk=8).astype(jnp.float32).sum()
+    return jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+
+
+def _grads_port(fn, q, k, v):
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    fn(*leaves).float().sum().backward()
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.parametrize("route", ["chunked", "chunked_window", "fused"])
+def test_attention_gradients(route):
+    q, k, v, pos = _qkv()
+    window = 7 if route == "chunked_window" else 0
+    if route == "fused":
+        fn = L.causal_self_attention
+    else:
+        def fn(q, k, v):
+            return L.chunked_attention(q, k, v, q_pos=_t(pos), kv_pos=_t(pos),
+                                       window=window, chunk=8)
+    got = _grads_port(fn, q, k, v)
+    want = _grads_ref(q, k, v, pos, window)
+    exact = _grads_port(lambda q, k, v: naive(q, k, v, _t(pos), _t(pos),
+                                              window=window), q, k, v)
+    for g, w, e in zip(got, want, exact):
+        assert torch.isfinite(g).all()
+        assert _maxdiff(g, e) < 0.06
+        assert _maxdiff(g, w) < 0.06
+
+
+def test_single_query_and_invalid_positions():
+    q, k, v, pos = _qkv(t=32)
+    full = L.chunked_attention(_t(q), _t(k), _t(v), q_pos=_t(pos),
+                               kv_pos=_t(pos), chunk=8)
+    last = L.chunked_attention(_t(q[:, -1:]), _t(k), _t(v),
+                               q_pos=_t(pos[:, -1:]), kv_pos=_t(pos), chunk=8)
+    assert _maxdiff(last, full[:, -1:]) < 1e-5
+    want = JL.chunked_attention(jnp.asarray(q[:, -1:]), jnp.asarray(k),
+                                jnp.asarray(v), q_pos=jnp.asarray(pos[:, -1:]),
+                                kv_pos=jnp.asarray(pos), chunk=8)
+    assert _maxdiff(last, want) < 1e-5
+    # slots with pos=-1 contribute nothing
+    kv_pos = pos.copy()
+    kv_pos[:, 8:] = -1
+    o1 = L.chunked_attention(_t(q[:, :1]), _t(k), _t(v),
+                             q_pos=_t(pos[:, 15:16]), kv_pos=_t(kv_pos),
+                             chunk=8)
+    o2 = L.chunked_attention(_t(q[:, :1]), _t(k[:, :8]), _t(v[:, :8]),
+                             q_pos=_t(pos[:, 15:16]), kv_pos=_t(pos[:, :8]),
+                             chunk=8)
+    assert _maxdiff(o1, o2) < 1e-5
+    want = JL.chunked_attention(jnp.asarray(q[:, :1]), jnp.asarray(k),
+                                jnp.asarray(v), q_pos=jnp.asarray(pos[:, 15:16]),
+                                kv_pos=jnp.asarray(kv_pos), chunk=8)
+    assert _maxdiff(o1, want) < 1e-5
+
+
+def test_fully_masked_rows_are_finite():
+    q, k, v, pos = _qkv(t=8)
+    kv_pos = _t(np.full_like(pos, -1))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    o = L.chunked_attention(*leaves, q_pos=_t(pos), kv_pos=kv_pos, chunk=4)
+    assert torch.isfinite(o).all() and float(o.abs().max()) < 1e-6
+    o.sum().backward()
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+def _configs(arch, dtype):
+    jcfg = jget_arch(arch).reduced()
+    cfg = get_arch(arch).reduced()
+    if dtype is not None:
+        jcfg = dataclasses.replace(jcfg, dtype=dtype)
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, jcfg
+
+
+def _params(jcfg, seed=0):
+    jparams = JM.init_params(jax.random.PRNGKey(seed), jcfg)
+    return convert.state_from_reference(jax.tree.map(np.asarray, jparams),
+                                        "cpu"), jparams
+
+
+def _tokens(cfg, b=2, t=24, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    return toks, labels
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "gemma_2b", "qwen2_15b",
+                                  "gemma3_4b"])
+@pytest.mark.parametrize("dtype", ["float32", None])
+def test_forward_and_loss_match_reference(arch, dtype):
+    """smollm (GQA), gemma_2b (MQA, GeGLU), qwen2 (qkv bias), gemma3
+    (sliding windows: the chunked route)."""
+    cfg, jcfg = _configs(arch, dtype)
+    params, jparams = _params(jcfg)
+    toks, labels = _tokens(cfg)
+    logits, _ = JT.forward(jparams, jcfg, jnp.asarray(toks), chunk=8)
+    got, aux = T.forward(params, cfg, _t(toks), chunk=8)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    tol_logits, tol_loss = (2e-3, 5e-5) if dtype else (0.1, 5e-3)
+    assert _maxdiff(got, logits) < tol_logits
+    batch = {"tokens": toks, "labels": labels}
+    want = JM.train_loss(jparams, jcfg, {k: jnp.asarray(v) for k, v in
+                                         batch.items()}, chunk=8)
+    got = M.train_loss(params, cfg, {k: _t(v) for k, v in batch.items()},
+                       chunk=8)
+    assert abs(float(got) - float(want)) < tol_loss
+    # explicit positions take the chunked route; remat changes nothing
+    pos = _t(np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24)))
+    by_pos, _ = T.forward(params, cfg, _t(toks), chunk=8, positions=pos,
+                          remat=False)
+    assert _maxdiff(by_pos, logits) < tol_logits
+
+
+def test_loss_gradients_match_reference():
+    cfg, jcfg = _configs("smollm_360m", "float32")
+    params, jparams = _params(jcfg)
+    toks, labels = _tokens(cfg)
+    batch = {"tokens": toks, "labels": labels}
+    want = jax.grad(JM.train_loss)(jparams, jcfg, {k: jnp.asarray(v) for k, v
+                                                   in batch.items()}, chunk=8)
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    M.train_loss(tree.unflatten(params, leaves), cfg,
+                 {k: _t(v) for k, v in batch.items()}, chunk=8).backward()
+    for leaf, w in zip(leaves, jax.tree.leaves(want)):
+        w = np.asarray(w)
+        assert leaf.grad.shape == w.shape
+        # bf16-rounded attention operands on both sides: 1 % of the scale
+        assert _maxdiff(leaf.grad, w) <= 1e-2 * np.abs(w).max() + 1e-7
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "gemma_2b", "qwen2_15b"])
+def test_init_params_layout_matches_reference(arch):
+    cfg, jcfg = _configs(arch, None)
+    jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    got = [(p, tuple(x.shape), str(x.dtype).split(".")[1])
+           for p, x in tree.items(params)]
+    paths = [tuple(k.key for k in path) for path, _ in
+             jax.tree_util.tree_flatten_with_path(jparams)[0]]
+    want = [(p, tuple(x.shape), str(x.dtype))
+            for p, x in zip(paths, jax.tree.leaves(jparams))]
+    assert got == want
+    # the same draws from the same seed
+    again = M.init_params(torch.Generator().manual_seed(0), cfg)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(params),
+                                                 tree.leaves(again)))
+    table = params["embed"]["table"].float()
+    assert abs(float(table.std()) - 1 / np.sqrt(cfg.d_model)) < 0.01
+
+
+@pytest.mark.parametrize("arch", ["grok1_314b", "moonlight_16b_a3b",
+                                  "whisper_medium", "rwkv6_16b", "zamba2_7b",
+                                  "qwen2vl_2b"])
+def test_unsupported_family_raises(arch):
+    cfg = get_arch(arch).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17d"):
+        M.family_module(cfg)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        M.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def test_unported_layers_raise():
+    x = torch.zeros((1, 2, 2, 4))
+    with pytest.raises(NotImplementedError, match="17d"):
+        L.apply_mrope(x, None, 1e4, (1, 1))
+    with pytest.raises(NotImplementedError, match="17g"):
+        L.quantize_kv(x)
+    with pytest.raises(NotImplementedError, match="17g"):
+        L.chunked_attention(x, x, x, q_pos=torch.zeros((1, 2)),
+                            kv_pos=torch.zeros((1, 2)),
+                            k_scale=torch.ones((1, 2, 2)))
+    with pytest.raises(NotImplementedError, match="17d"):
+        L.moe({}, x, get_arch("grok1_314b").reduced())
