@@ -1,11 +1,10 @@
-"""Shared layer library, the dense parts: RMSNorm, RoPE, GQA attention,
-SwiGLU/GeGLU MLP, embeddings.
+"""Shared layer library: RMSNorm, RoPE/M-RoPE, GQA attention (with the
+int8-KV decode path), SwiGLU/GeGLU MLP, GShard-style MoE, embeddings.
 
 Params are nested dicts of tensors with the JAX package's names and
 shapes. Math runs in fp32 where the reference's does (norms, RoPE,
-attention scores, the unembedding's accumulation) and in the params'
-dtype elsewhere. `apply_mrope`, `moe` and `quantize_kv` are not ported
-yet and raise.
+attention scores, the MoE router, the unembedding's accumulation) and in
+the params' dtype elsewhere.
 
 Attention has two routes. Causal bf16 self-attention at positions
 0..T-1 with no window (the train forward) calls `causal_self_attention`,
@@ -17,6 +16,7 @@ before the products, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -60,6 +60,11 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)               # (hd/2,)
     angles = pos[..., None].float() * freqs               # (B, T, hd/2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, H, hd) rotated by fp32 angles (B, T, hd/2), in fp32."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -67,9 +72,22 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
-def apply_mrope(x, pos3, theta, sections):
-    raise NotImplementedError(
-        "M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 17d)")
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. pos3: (3, B, T) = (temporal, h, w) ids;
+    frequency dims split into `sections` (sums to hd/2), each section
+    rotated by its own position stream."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"hd/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=pos3.device),
+        torch.tensor(sections, device=pos3.device))        # (hd/2,) in {0,1,2}
+    pos_sel = pos3[sec_ids]                                # (hd/2, B, T)
+    angles = pos_sel.permute(1, 2, 0).float() * freqs      # (B, T, hd/2)
+    return _rotate(x, angles)
 
 
 # ----------------------------------------------------------------- attention
@@ -109,28 +127,37 @@ def chunked_attention(
     arithmetic: q, k, v and the probabilities rounded to bf16, scores and
     sums in fp32, fully masked rows 0. Plain torch, so autograd gives the
     gradients; the running max is held out of the graph (the softmax does
-    not depend on it)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP item 17g)")
+    not depend on it).
+
+    `k_scale` / `v_scale` ((B, S, Kv)) make k and v an int8 cache: a
+    decode-path feature (Tq = 1). Each chunk is dequantized on its own, as
+    a bf16 product of the int8 values and the scales, so the bf16 copy is
+    chunk-sized. The last chunk may be short: the reference pads it with
+    invalid slots, which add nothing."""
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("an int8 KV cache needs both k_scale and v_scale")
     window = int(window)
     b, tq, h, hd = q.shape
+    if quantized and tq != 1:
+        raise ValueError("the int8 KV cache is a decode-path feature "
+                         f"(Tq = 1), got Tq = {tq}")
     s, kv_heads = k.shape[1], k.shape[2]
     g = h // kv_heads
     chunk = min(chunk, s)
-    pad = (-s) % chunk
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
     scale = 1.0 / math.sqrt(hd)
     qg = _bf16(q.reshape(b, tq, kv_heads, g, hd).permute(0, 2, 3, 1, 4))
     acc = q.new_zeros((b, kv_heads, g, tq, hd), dtype=torch.float32)
     m = q.new_full((b, kv_heads, g, tq), -math.inf, dtype=torch.float32)
     l = q.new_zeros((b, kv_heads, g, tq), dtype=torch.float32)
-    for c in range(0, k.shape[1], chunk):
-        k_i = _bf16(k[:, c:c + chunk])
-        v_i = _bf16(v[:, c:c + chunk])
+    for c in range(0, s, chunk):
+        k_i, v_i = k[:, c:c + chunk], v[:, c:c + chunk]
+        if quantized:
+            k_i = k_i.to(torch.bfloat16) * k_scale[:, c:c + chunk, :, None].to(
+                torch.bfloat16)
+            v_i = v_i.to(torch.bfloat16) * v_scale[:, c:c + chunk, :, None].to(
+                torch.bfloat16)
+        k_i, v_i = _bf16(k_i), _bf16(v_i)
         valid = _mask_chunk(kv_pos[:, c:c + chunk], q_pos, causal, window)
         sc = torch.einsum("bkgth,bckh->bkgtc", qg, k_i) * scale
         sc = torch.where(valid, sc, -math.inf)
@@ -215,13 +242,84 @@ def mlp(params, x, cfg):
 
 # ----------------------------------------------------------------------- MoE
 def init_moe(key, cfg, dtype) -> dict:
-    raise NotImplementedError(
-        "mixture-of-experts layers are not ported yet (ROADMAP item 17d)")
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    return {
+        "router": _dense_init(key, (d, e), d, torch.float32),
+        "wi_gate": _dense_init(key, (e, d, f), d, dtype),
+        "wi_up": _dense_init(key, (e, d, f), d, dtype),
+        "wo": _dense_init(key, (e, f, d), f, dtype),
+    }
 
 
-def moe(params, x, cfg, rules: MeshRules = NO_MESH, group_size: int = 2048):
-    raise NotImplementedError(
-        "mixture-of-experts layers are not ported yet (ROADMAP item 17d)")
+@dataclasses.dataclass
+class MoEAux:
+    load_balance_loss: torch.Tensor
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` with jnp's type promotion (a bf16 operand meeting an
+    fp32 one is widened, where torch would raise)."""
+    dt = ops[0].dtype
+    for x in ops[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return torch.einsum(eq, *(x.to(dt) for x in ops))
+
+
+def moe(params, x, cfg, rules: MeshRules = NO_MESH,
+        group_size: int = 2048) -> tuple[torch.Tensor, MoEAux]:
+    """GShard-style dense-dispatch MoE (the reference's einsum form).
+
+    Tokens are split into groups of `group_size` (one group per sequence
+    when it does not divide T), each with its own capacity
+    C = min(ceil(G*k*cf/E), G); a (token, slot) past its expert's
+    capacity is dropped: its one-hot row over C is all zero, as
+    `jax.nn.one_hot` gives for an index >= C. The router runs in fp32,
+    the top-k gate values are renormalised, and the aux loss is the
+    Switch load balance of the top-1 share."""
+    mcfg = cfg.moe
+    b_in, t_in, d = x.shape
+    g_sz = min(group_size, t_in)
+    if t_in % g_sz:
+        g_sz = t_in                      # fallback: one group per sequence
+    x = x.reshape(b_in * (t_in // g_sz), g_sz, d)
+    b, t, _ = x.shape
+    e, k = mcfg.num_experts, mcfg.top_k
+    cap = min(int(math.ceil(t * k * mcfg.capacity_factor / e)), t)
+
+    logits = torch.einsum("btd,de->bte", x.float(), params["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (b,t,k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # position of each (token, slot) in its expert's capacity buffer
+    onehot = F.one_hot(gate_idx, e).float()                        # (b,t,k,e)
+    flat = onehot.reshape(b, t * k, e)
+    pos_in_expert = torch.cumsum(flat, dim=1) - flat               # (b,t*k,e)
+    pos = (pos_in_expert * flat).sum(-1).reshape(b, t, k)          # (b,t,k)
+    keep = (pos < cap).float()
+    cap_onehot = (pos.long()[..., None] == torch.arange(
+        cap, device=x.device)).float()                             # (b,t,k,cap)
+    dispatch = torch.einsum("btke,btkc,btk->btec", onehot, cap_onehot, keep)
+    combine = torch.einsum("btke,btkc,btk,btk->btec", onehot, cap_onehot,
+                           keep, gate_vals)
+
+    xb = x.to(torch.bfloat16)
+    expert_in = torch.einsum("btec,btd->becd", dispatch.to(torch.bfloat16),
+                             xb)                                   # (b,e,cap,d)
+    gate_h = _einsum("becd,edf->becf", expert_in, params["wi_gate"])
+    up_h = _einsum("becd,edf->becf", expert_in, params["wi_up"])
+    h = act_fn(cfg.act)(gate_h) * up_h
+    expert_out = _einsum("becf,efd->becd", h, params["wo"])
+    out = _einsum("btec,becd->btd", combine.to(torch.bfloat16),
+                  expert_out).to(x.dtype)
+    out = out.reshape(b_in, t_in, d)
+
+    # switch-style load balance aux: E * sum(frac_tokens_e * frac_prob_e)
+    frac_tokens = onehot[:, :, 0, :].mean(dim=(0, 1))              # top-1 share
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return out, MoEAux(load_balance_loss=aux)
 
 
 # ----------------------------------------------------------------- embedding
@@ -242,6 +340,13 @@ def unembed(params, x):
 
 
 # ------------------------------------------------------------ int8 KV cache
-def quantize_kv(x):
-    raise NotImplementedError(
-        "the int8 KV cache is not ported yet (ROADMAP item 17g)")
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, Kv, hd) -> (int8 values, (B, T, Kv) float16 scales).
+
+    Per-(token, head) absmax scaling. The values are rounded (half to
+    even, as `jnp.round`) against the fp32 scale; the scale is stored as
+    float16 after that."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)

@@ -3,10 +3,11 @@
 The JAX package names every parameter and activation dimension by a
 logical axis ("d", "tp", "batch", "seq" or None) and `MeshRules` maps the
 names onto a device mesh. This port runs on one device, so only the
-no-mesh rules exist here: `NO_MESH` replicates everything and `constrain`
-/ `tree_constrain` return their input. The mesh half (`spec`, `sharding`,
-`kv_cache_axes`, the logical trees) waits for the multi-device slice
-(ROADMAP item 17h).
+no-mesh rules exist here: `NO_MESH` replicates everything, `constrain`
+/ `tree_constrain` return their input, and `kv_cache_axes` gives the
+no-mesh layout of a KV cache. The mesh half (`spec`, `sharding`, the
+logical trees, the tensor-sharded cache layouts) waits for the
+multi-device slice (ROADMAP item 17h).
 """
 from __future__ import annotations
 
@@ -38,3 +39,12 @@ NO_MESH = MeshRules(mesh=None)
 def tree_constrain(rules: MeshRules, tree, logical_tree):
     """Sharding constraints over a whole tree: the identity off-mesh."""
     return tree
+
+
+def kv_cache_axes(num_kv_heads: int, head_dim: int, rules: MeshRules):
+    """The logical axes of a (L, B, S, kv, hd) KV cache. Off-mesh (the
+    only case here) the cache is batch-major and nothing else is named."""
+    if rules.mesh is not None:
+        raise NotImplementedError(
+            "device meshes are not ported yet (ROADMAP item 17h)")
+    return (None, "batch", None, None, None)

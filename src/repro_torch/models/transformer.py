@@ -1,11 +1,18 @@
-"""Decoder-only transformer, the dense train forward.
+"""Decoder-only transformer covering the dense, MoE, sliding-window
+(gemma3) and M-RoPE VLM (qwen2-vl) architectures, with its KV cache.
 
 Uniform pre-norm residual blocks; each parameter of the layers is stacked
 on a leading axis of length `num_layers`, as the reference's `jax.vmap`
-stacks it, and `forward` walks the layers in a Python loop (the
-reference's `lax.scan`), each layer under `torch.utils.checkpoint` when
-`remat` is set. MoE layers, M-RoPE and the KV-cache paths (`prefill`,
-`decode_step`, `init_cache`) are not ported yet.
+stacks it, and `forward` / `decode_step` walk the layers in a Python loop
+(the reference's `lax.scan`), each layer of `forward` under
+`torch.utils.checkpoint` when `remat` is set.
+
+KV caches are (L, B, S, Kv, hd) stacks, int8 with (L, B, S, Kv) float16
+scales when `kv_dtype="int8"`. Two departures from the reference, both
+for a serving loop on the card: `decode_step` writes the cache's tensors
+in place (the returned dict holds them, with `pos` advanced and a new
+`idx`), and `idx` is a 0-d int32 tensor on the host, so a step places
+its write and its window without waiting for the card.
 """
 from __future__ import annotations
 
@@ -14,8 +21,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import NO_MESH, MeshRules
+from repro_torch.models.sharding import NO_MESH, MeshRules, kv_cache_axes
 
 
 def _dtype(cfg: ArchConfig):
@@ -65,9 +73,32 @@ def layer_windows(cfg: ArchConfig) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- blocks
-def _attn_block(lp, x, cfg, *, q_pos, window: int, rules, chunk,
+def _per_layer(stacked: dict) -> list[dict]:
+    """The stacked layer params as one dict of views a layer (one unbind
+    per leaf: under autograd its backward stacks the gradients once)."""
+    slices = [leaf.unbind(0) for leaf in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [s[i] for s in slices])
+            for i in range(len(slices[0]))]
+
+
+def _qkv_rope(lp, x, cfg, q_pos, pos3):
+    """Pre-norm q, k, v of one layer, rotated: M-RoPE by `pos3` where the
+    config has it and `pos3` is given, else RoPE by `q_pos`."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.attention_qkv(lp["attn"], h, cfg)
+    if cfg.mrope and pos3 is not None:
+        q = L.apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = L.apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_block(lp, x, cfg, *, q_pos, window: int, pos3, rules, chunk,
                 arange_pos: bool):
-    """Pre-norm self-attention with its residual.
+    """Pre-norm self-attention with its residual; returns (x, k, v), the
+    post-RoPE k and v with their own KV heads (what a cache holds).
 
     A layer with no window whose `q_pos` is 0..T-1 in every row
     (`arange_pos`) and whose activations are bf16 takes
@@ -75,20 +106,14 @@ def _attn_block(lp, x, cfg, *, q_pos, window: int, rules, chunk,
     probabilities to bf16 before the product with v as the reference
     does; fp32 activations take `chunked_attention`, which rounds them
     the same way (the fused fp32 kernel would not)."""
-    if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet (ROADMAP item 17d)")
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = L.attention_qkv(lp["attn"], h, cfg)
-    q = L.apply_rope(q, q_pos, cfg.rope_theta)
-    k = L.apply_rope(k, q_pos, cfg.rope_theta)
+    q, k, v = _qkv_rope(lp, x, cfg, q_pos, pos3)
     if arange_pos and window == 0 and q.dtype == torch.bfloat16:
         o = L.causal_self_attention(q, k, v)
     else:
         o = L.chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
                                 causal=True, window=window, chunk=chunk,
                                 rules=rules)
-    return x + L.attention_out(lp["attn"], o)
+    return x + L.attention_out(lp["attn"], o), k, v
 
 
 def _ffn_block(lp, x, cfg, rules):
@@ -106,52 +131,181 @@ def forward(
     tokens: torch.Tensor,                   # (B, T) int
     *,
     positions: torch.Tensor | None = None,  # (B, T) absolute; default arange
-    pos3: torch.Tensor | None = None,
-    vision_embeds: torch.Tensor | None = None,
+    pos3: torch.Tensor | None = None,       # (3, B, T) for M-RoPE
+    vision_embeds: torch.Tensor | None = None,  # (B, Tv, d) stub frontend
     rules: MeshRules = NO_MESH,
     chunk: int = 1024,
     remat: bool = True,
     collect_cache: bool = False,
     last_only: bool = False,
 ):
-    """Full-sequence forward. Returns (logits fp32, aux_loss)."""
-    if pos3 is not None or vision_embeds is not None:
-        raise NotImplementedError(
-            "M-RoPE and vision inputs are not ported yet (ROADMAP item 17d)")
-    if collect_cache:
-        raise NotImplementedError(
-            "KV-cache collection (prefill) is not ported yet "
-            "(ROADMAP item 17g)")
+    """Full-sequence forward. Returns (logits fp32, aux_loss[, (k_stack,
+    v_stack)]): with `collect_cache`, the post-RoPE (L, B, T, Kv, hd) keys
+    and values; with `last_only`, the logits of the last position only."""
     b, t = tokens.shape
     x = L.embed(params["embed"], tokens)
+    if vision_embeds is not None:
+        tv = min(vision_embeds.shape[1], t)
+        x = torch.cat([vision_embeds[:, :tv].to(x.dtype), x[:, tv:]], dim=1)
     arange_pos = positions is None
     q_pos = positions if positions is not None else torch.arange(
         t, dtype=torch.int32, device=tokens.device).expand(b, t)
     windows = layer_windows(cfg).tolist()
-    # one unbind per leaf: its backward stacks the layers' gradients once
-    paths, stacked = zip(*tree.items(params["layers"]))
-    slices = [leaf.unbind(0) for leaf in stacked]
 
     def body(x, lp, window):
-        x = _attn_block(lp, x, cfg, q_pos=q_pos, window=window, rules=rules,
-                        chunk=chunk, arange_pos=arange_pos)
-        return _ffn_block(lp, x, cfg, rules)
+        x, k, v = _attn_block(lp, x, cfg, q_pos=q_pos, window=window,
+                              pos3=pos3, rules=rules, chunk=chunk,
+                              arange_pos=arange_pos)
+        x, lb = _ffn_block(lp, x, cfg, rules)
+        return x, lb, k, v
 
     aux = x.new_zeros((), dtype=torch.float32)
-    for i, window in enumerate(windows):
-        lp: dict = {}
-        for path, leaf in zip(paths, slices):
-            node = lp
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = leaf[i]
+    ks, vs = [], []
+    for lp, window in zip(_per_layer(params["layers"]), windows):
         if remat:
-            x, lb = checkpoint(body, x, lp, window, use_reentrant=False)
+            x, lb, k, v = checkpoint(body, x, lp, window, use_reentrant=False)
         else:
-            x, lb = body(x, lp, window)
+            x, lb, k, v = body(x, lp, window)
         aux = aux + lb
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x)
+    if collect_cache:
+        return logits, aux, (torch.stack(ks), torch.stack(vs))
     return logits, aux
+
+
+# -------------------------------------------------------------------- cache
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               rules: MeshRules = NO_MESH, kv_dtype: str = "bf16",
+               device=None) -> dict:
+    """An empty cache on `device` (`None` = the card; raises without
+    one): k, v (L, B, max_len, Kv, hd) in the params' dtype or int8 with
+    float16 scales, `pos` (B, max_len) = -1, `idx` 0 (on the host)."""
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
+                         f"{kv_dtype!r}")
+    dev = resolve_device(device)
+    dtype = torch.int8 if kv_dtype == "int8" else _dtype(cfg)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    cache = {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=dev),
+        "idx": torch.zeros((), dtype=torch.int32),
+    }
+    if kv_dtype == "int8":
+        cache["k_scale"] = torch.zeros(shape[:4], dtype=torch.float16,
+                                       device=dev)
+        cache["v_scale"] = torch.zeros(shape[:4], dtype=torch.float16,
+                                       device=dev)
+    return cache
+
+
+def cache_logical(cfg: ArchConfig, rules: MeshRules = NO_MESH,
+                  kv_dtype: str = "bf16") -> dict:
+    axes = kv_cache_axes(cfg.num_kv_heads, cfg.hd, rules)
+    out = {
+        "k": axes,
+        "v": axes,
+        "pos": ("batch", None),
+        "idx": (),
+    }
+    if kv_dtype == "int8":
+        out["k_scale"] = axes[:4]
+        out["v_scale"] = axes[:4]
+    return out
+
+
+@torch.inference_mode()
+def prefill(params, cfg, tokens, max_len: int, *, rules=NO_MESH, chunk=1024,
+            pos3=None, vision_embeds=None, kv_dtype: str = "bf16"):
+    """Run the full prompt, build the cache on the prompt's device.
+    Returns (last_logits (B, V), cache)."""
+    b, t = tokens.shape
+    if t > max_len:
+        raise ValueError(f"a {t}-token prompt does not fit a cache of "
+                         f"{max_len}")
+    logits, _, (k_stack, v_stack) = forward(
+        params, cfg, tokens, rules=rules, chunk=chunk, collect_cache=True,
+        pos3=pos3, vision_embeds=vision_embeds, remat=False, last_only=True)
+    cache = init_cache(cfg, b, max_len, rules, kv_dtype=kv_dtype,
+                       device=tokens.device)
+    if kv_dtype == "int8":
+        k_stack, ks = L.quantize_kv(k_stack)
+        v_stack, vs = L.quantize_kv(v_stack)
+        cache["k_scale"][:, :, :t] = ks
+        cache["v_scale"][:, :, :t] = vs
+    cache["k"][:, :, :t] = k_stack
+    cache["v"][:, :, :t] = v_stack
+    cache["pos"][:, :t] = torch.arange(t, dtype=torch.int32,
+                                       device=tokens.device)
+    cache["idx"] = torch.tensor(t, dtype=torch.int32)
+    return logits[:, -1], cache
+
+
+@torch.inference_mode()
+def decode_step(params, cfg, token, cache, *, rules=NO_MESH, chunk=4096,
+                pos3=None, window_slice: bool = True):
+    """One decode step. token: (B,) int. Returns (logits (B, V), cache).
+
+    The step's k and v go to slot `idx` of every layer (the last slot once
+    `idx` reaches the cache's length: the reference's
+    `dynamic_update_slice` clamps its start, and so does this). For
+    sliding-window layers (`window_slice=True`, gemma3), attention reads
+    only the last `sliding_window` cache entries, a slice whose start is
+    clamped to fit as `dynamic_slice_in_dim` clamps it; global layers read
+    the full cache. The reference carries no int8 scales through that
+    branch, so an int8 cache with a sliced config raises."""
+    b = token.shape[0]
+    idx = int(cache["idx"])
+    max_len = cache["k"].shape[2]
+    at = min(idx, max_len - 1)
+    w = cfg.sliding_window
+    use_slicing = (window_slice and cfg.attn_kind == "sliding"
+                   and w < max_len)
+    quantized = "k_scale" in cache
+    if quantized and use_slicing:
+        raise ValueError(
+            f"{cfg.name}: the int8 KV cache with window slicing is not "
+            "supported (the reference's sliced decode carries no int8 "
+            "scales); use kv_dtype='bf16' or window_slice=False")
+    x = L.embed(params["embed"], token[:, None])
+    q_pos = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
+    kv_pos = cache["pos"]
+    kv_pos[:, at] = idx
+    start = min(max(idx - (w - 1), 0), max_len - w)
+    windows = layer_windows(cfg).tolist()
+    for i, (lp, window) in enumerate(zip(_per_layer(params["layers"]),
+                                         windows)):
+        q, k, v = _qkv_rope(lp, x, cfg, q_pos, pos3)
+        if quantized:
+            k, ksc = L.quantize_kv(k)
+            v, vsc = L.quantize_kv(v)
+            cache["k_scale"][i, :, at] = ksc[:, 0]
+            cache["v_scale"][i, :, at] = vsc[:, 0]
+        cache["k"][i, :, at] = k[:, 0]
+        cache["v"][i, :, at] = v[:, 0]
+        k_at, v_at, kv_p = cache["k"][i], cache["v"][i], kv_pos
+        ks_at = vs_at = None
+        if quantized:
+            ks_at, vs_at = cache["k_scale"][i], cache["v_scale"][i]
+        if use_slicing and window > 0:
+            k_at, v_at = k_at[:, start:start + w], v_at[:, start:start + w]
+            kv_p = kv_p[:, start:start + w]
+        o = L.chunked_attention(q, k_at, v_at, q_pos=q_pos, kv_pos=kv_p,
+                                causal=True, window=window, chunk=chunk,
+                                rules=rules, k_scale=ks_at, v_scale=vs_at)
+        x = x + L.attention_out(lp["attn"], o)
+        x, _ = _ffn_block(lp, x, cfg, rules)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x)[:, 0]
+    new_cache = dict(cache)
+    new_cache["idx"] = torch.tensor(idx + 1, dtype=torch.int32,
+                                    device=cache["idx"].device)
+    return logits, new_cache

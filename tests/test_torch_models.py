@@ -272,7 +272,9 @@ def test_loss_gradients_match_reference():
         assert _maxdiff(leaf.grad, w) <= 1e-2 * np.abs(w).max() + 1e-7
 
 
-@pytest.mark.parametrize("arch", ["smollm_360m", "gemma_2b", "qwen2_15b"])
+@pytest.mark.parametrize("arch", ["smollm_360m", "gemma_2b", "qwen2_15b",
+                                  "grok1_314b", "moonlight_16b_a3b",
+                                  "qwen2vl_2b"])
 def test_init_params_layout_matches_reference(arch):
     cfg, jcfg = _configs(arch, None)
     jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
@@ -292,26 +294,190 @@ def test_init_params_layout_matches_reference(arch):
     assert abs(float(table.std()) - 1 / np.sqrt(cfg.d_model)) < 0.01
 
 
-@pytest.mark.parametrize("arch", ["grok1_314b", "moonlight_16b_a3b",
-                                  "whisper_medium", "rwkv6_16b", "zamba2_7b",
-                                  "qwen2vl_2b"])
+@pytest.mark.parametrize("arch", ["whisper_medium", "rwkv6_16b", "zamba2_7b"])
 def test_unsupported_family_raises(arch):
     cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17d"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17d.2"):
         M.family_module(cfg)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         M.init_params(torch.Generator().manual_seed(0), cfg)
 
 
-def test_unported_layers_raise():
-    x = torch.zeros((1, 2, 2, 4))
-    with pytest.raises(NotImplementedError, match="17d"):
-        L.apply_mrope(x, None, 1e4, (1, 1))
-    with pytest.raises(NotImplementedError, match="17g"):
-        L.quantize_kv(x)
-    with pytest.raises(NotImplementedError, match="17g"):
-        L.chunked_attention(x, x, x, q_pos=torch.zeros((1, 2)),
-                            kv_pos=torch.zeros((1, 2)),
-                            k_scale=torch.ones((1, 2, 2)))
-    with pytest.raises(NotImplementedError, match="17d"):
-        L.moe({}, x, get_arch("grok1_314b").reduced())
+# ------------------------------------------------------- MoE and M-RoPE
+def _moe_inputs(cfg, b, t, seed):
+    """x and MoE params from numpy; the router is drawn at 4x the init
+    scale so that no two experts tie on a token (an exact tie would let
+    `jax.lax.top_k` and `torch.topk` pick different experts)."""
+    rng = np.random.default_rng(seed)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    p = {"router": rng.standard_normal((d, e)) * 4 / np.sqrt(d),
+         "wi_gate": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "wi_up": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "wo": rng.standard_normal((e, f, d)) / np.sqrt(f)}
+    return x, {k: v.astype(np.float32) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    # (arch, B, T, group_size, capacity_factor): groups that divide T,
+    # the one-group fallback, tokens dropped at capacity, decode (T = 1)
+    ("grok1_314b", 2, 16, 8, None),
+    ("grok1_314b", 2, 12, 8, None),
+    ("moonlight_16b_a3b", 2, 16, 16, 1.0),
+    ("moonlight_16b_a3b", 3, 1, 2048, 1.25),
+    ("moonlight_16b_a3b", 1, 24, 2048, 0.5),
+])
+def test_moe_matches_reference(case, dtype):
+    """Output and load-balance aux. fp32: 1e-5 on the aux (fp32 router
+    and means on both sides) and 1e-2 on the output, whose combine
+    weights are rounded to bf16 on both sides (a gate value that differs
+    in its last fp32 bit may round to the neighbouring bf16 value, 2^-8
+    relative); bf16 params: 4 bf16 ulps of the output's magnitude."""
+    arch, b, t, group, cf = case
+    cfg, jcfg = _configs(arch, None)
+    if cf is not None:
+        moe_cfg = dataclasses.replace(cfg.moe, capacity_factor=cf,
+                                      num_experts=8, top_k=2)
+        cfg = dataclasses.replace(cfg, moe=moe_cfg)
+        jcfg = dataclasses.replace(jcfg, moe=jcfg.moe.__class__(
+            num_experts=8, top_k=2, capacity_factor=cf))
+    x, p = _moe_inputs(cfg, b, t, seed=t)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jp = {k: jnp.asarray(v, jnp.float32 if k == "router" else jdt)
+          for k, v in p.items()}
+    tp = {k: _t(v).to(torch.float32 if k == "router" else tdt)
+          for k, v in p.items()}
+    want, jaux = JL.moe(jp, jnp.asarray(x, jdt), jcfg, group_size=group)
+    got, aux = L.moe(tp, _t(x).to(tdt), cfg, group_size=group)
+    assert got.dtype == tdt and got.shape == x.shape
+    assert abs(float(aux.load_balance_loss)
+               - float(jaux.load_balance_loss)) < 1e-5
+    big = float(np.abs(_np(want)).max())
+    tol = 1e-2 if dtype == "float32" else 4 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert _maxdiff(got, want) <= tol
+
+
+def test_moe_drops_tokens_past_capacity():
+    """With capacity 1 a group of 4 tokens routed top-1 to 2 experts keeps
+    at most 2 of them; a dropped token's output is exactly 0 (the
+    reference's all-zero capacity one-hot row)."""
+    cfg, _ = _configs("grok1_314b", "float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=2, top_k=1, capacity_factor=0.5))
+    x, p = _moe_inputs(cfg, 1, 4, seed=7)
+    out, _ = L.moe({k: _t(v) for k, v in p.items()}, _t(x), cfg,
+                   group_size=4)
+    zero_rows = int((out.abs().amax(-1) == 0).sum())
+    assert zero_rows == 2
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_apply_mrope_matches_reference(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    pos3 = rng.integers(0, 300, size=(3, 2, 5)).astype(np.int32)
+    jx, tx = jnp.asarray(x), _t(x)
+    if dtype == "bfloat16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.bfloat16()
+    tol = 1e-5 if dtype == np.float32 else 2 ** -7 * 4 + 1e-5
+    for sections in ((2, 3, 3), (8, 0, 0), (1, 1, 6)):
+        got = L.apply_mrope(tx, _t(pos3), 1e6, sections)
+        want = JL.apply_mrope(jx, jnp.asarray(pos3), 1e6, sections)
+        assert got.dtype == tx.dtype
+        assert _maxdiff(got, want) <= tol
+    # one stream everywhere is plain RoPE
+    same = np.broadcast_to(pos3[:1], pos3.shape)
+    assert _maxdiff(L.apply_mrope(tx, _t(same), 1e6, (2, 3, 3)),
+                    L.apply_rope(tx, _t(pos3[0]), 1e6)) == 0.0
+    with pytest.raises(ValueError, match="sections"):
+        L.apply_mrope(tx, _t(pos3), 1e6, (1, 1, 1))
+
+
+@pytest.mark.parametrize("arch", ["grok1_314b", "moonlight_16b_a3b",
+                                  "qwen2vl_2b"])
+@pytest.mark.parametrize("dtype", ["float32", None])
+def test_moe_and_vlm_forward_match_reference(arch, dtype):
+    """Logits, aux and loss of the MoE and M-RoPE configs (qwen2vl with a
+    (t, h, w) grid in pos3 and stub vision embeddings, at the token
+    embeddings' scale, over the first 6 positions), at
+    `test_forward_and_loss_match_reference`'s tolerances; fp32 MoE logits
+    hold to 1e-2 (bf16 combine weights, `test_moe_matches_reference`).
+    The aux holds to 1e-5 in fp32 and to the loss's 5e-3 with bf16
+    params, whose router inputs are bf16 activations that differ by ulps
+    between the packages."""
+    cfg, jcfg = _configs(arch, dtype)
+    params, jparams = _params(jcfg)
+    toks, labels = _tokens(cfg)
+    extra = {}
+    if cfg.mrope:
+        rng = np.random.default_rng(4)
+        pos3 = np.broadcast_to(np.arange(24, dtype=np.int32),
+                               (3, 2, 24)).copy()
+        pos3[1, :, :6] = [0, 0, 0, 1, 1, 1]
+        pos3[2, :, :6] = [0, 1, 2, 0, 1, 2]
+        extra = {"pos3": pos3, "vision_embeds": (rng.standard_normal(
+            (2, 6, cfg.d_model)) / np.sqrt(cfg.d_model)).astype(np.float32)}
+    logits, jaux = JT.forward(jparams, jcfg, jnp.asarray(toks), chunk=8,
+                              **{k: jnp.asarray(v) for k, v in extra.items()})
+    got_logits, aux = T.forward(params, cfg, _t(toks), chunk=8,
+                                **{k: _t(v) for k, v in extra.items()})
+    tol_logits, tol_loss = (2e-3, 5e-5) if dtype else (0.1, 5e-3)
+    if dtype and cfg.moe:
+        tol_logits, tol_loss = 1e-2, 5e-4
+    assert _maxdiff(got_logits, logits) < tol_logits
+    assert abs(float(aux) - float(jaux)) < (1e-5 if dtype else 5e-3)
+    if cfg.moe:
+        assert float(aux) > 0
+    batch = {"tokens": toks, "labels": labels, **extra}
+    want = JM.train_loss(jparams, jcfg, {k: jnp.asarray(v) for k, v in
+                                         batch.items()}, chunk=8)
+    got = M.train_loss(params, cfg, {k: _t(v) for k, v in batch.items()},
+                       chunk=8)
+    assert abs(float(got) - float(want)) < tol_loss
+    if cfg.mrope:
+        # the vision embeddings replace the first positions' token embeds
+        plain, _ = T.forward(params, cfg, _t(toks), chunk=8,
+                             pos3=_t(extra["pos3"]))
+        assert _maxdiff(plain, got_logits) > 0.1
+
+
+@pytest.mark.parametrize("arch", ["grok1_314b", "moonlight_16b_a3b"])
+def test_moe_train_step_matches_reference(arch):
+    """One train step of a reduced MoE config (the aux term in the loss,
+    its gradient through the router), at `tests/test_torch_train.py`'s
+    bf16 tolerances: 5e-3 on the loss, 2e-2 on the gradient norm, 1 bf16
+    ulp (plus 1e-6) on params; the fp32 router to 1e-4 of its scale."""
+    from repro.train import optimizer as jopt
+    from repro.train import train_step as jts
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    cfg, jcfg = _configs(arch, None)
+    kw = dict(attn_chunk=16)
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(peak_lr=5e-3, warmup_steps=1),
+                       **kw)
+    jtcfg = jts.TrainConfig(adamw=jopt.AdamWConfig(peak_lr=5e-3,
+                                                   warmup_steps=1), **kw)
+    jstate = jts.init_state(jax.random.PRNGKey(0), jcfg, jtcfg)
+    state = convert.state_from_reference(jax.tree.map(np.asarray, jstate),
+                                         "cpu")
+    batch = SyntheticStream(cfg, ShapeConfig("t", "train", 32, 4)).batch_at(1)
+    new, m = make_train_step(cfg, tcfg)(state, batch)
+    jnew, jm = jts.make_train_step(jcfg, jtcfg)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    assert abs(float(m["loss"]) - float(jm["loss"])) < 5e-3
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=2e-2)
+    for (path, a), b in zip(tree.items(new["params"]),
+                            jax.tree.leaves(jnew["params"])):
+        b = np.asarray(jnp.asarray(b, jnp.float32))
+        if a.dtype == torch.float32:
+            tol = 1e-4 * np.abs(b).max()
+        else:
+            e = np.floor(np.log2(np.maximum(np.abs(b), 2.0 ** -126)))
+            tol = 2.0 ** (e - 7) + 1e-6
+        assert (np.abs(_np(a) - b) <= tol).all(), path

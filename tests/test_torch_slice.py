@@ -129,6 +129,9 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for m in ('repro_torch.serve.serve_step', 'repro_torch.launch.serve',\n"
+        "          'repro_torch.launch.cells', 'repro_torch.models.transformer'):\n"
+        "    assert m in sys.modules, m\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
