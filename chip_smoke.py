@@ -110,7 +110,37 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    margin exceeds twice the tolerance (the tolerances and their reasons
    are at `SERVE_EQUIV` / `SERVE_CPU`);
    8e. the six kernels' launch counters, set to 0 before 8a and read
-   after it and after 8d: serving launches none of them.
+   after it and after 8d: serving launches none of them;
+9. the other model families (`models/{rwkv6,mamba2,zamba2,whisper}.py`,
+   their serve steps and the trainer; plain PyTorch on the card, no kernel
+   of this repo):
+   9a. the serve launcher serves zamba2_7b at its full width and depth
+   (81 mamba2 layers, 13 shared-attention points, d=3584, 6.97e9 params,
+   bf16; random params from seed 0): B=8 prompts of 512 tokens, 32 greedy
+   tokens; prints the prefill's time (the run's and a warm one), each
+   decode step's (first, median, range), tokens/s, peak device memory,
+   the decode step's bound (every weight byte, the SSM and conv states
+   read and written and the filled k / v of the 13 points read, at 3.35
+   TB/s), and one steady decode step traced (busy time by kernel kind,
+   idle share, launches);
+   9b. decode == forward at full width: rwkv6_16b at 24 layers (B=2,
+   512 + 8 tokens) and its chunk invariance (the forward at chunk 16
+   against 64), zamba2_7b at 12 layers (512 + 8), whisper_medium at 24 +
+   24 layers over 1,500 frames (a 4-token prompt + 8), each step's
+   logits within the tolerances stated at `FAMILY_EQUIV`, and each
+   family's decode-step median;
+   9c. prefill and 8 greedy decode steps on the card against the same
+   params on the CPU (fed the card's tokens), in fp32 at full width:
+   rwkv6 at 2 layers, zamba2 at 6 (one shared point), whisper at 2 + 2,
+   within the tolerances at `FAMILY_CPU`;
+   9d. `make_train_step` (AdamW, fp32 moments), 3 steps each at full
+   width: rwkv6_16b at 24 layers (B=8, T=1,024), whisper_medium at 24 +
+   24 (B=8, 1,500 frames, 448 tokens), zamba2_7b at 12 layers (B=8,
+   T=1,024; its full depth's params, gradients and moments need 8.4e10
+   bytes): finite losses, changed params, step times, peak memory and one
+   more step traced;
+   9e. the six kernels' launch counters, set to 0 before 9a and read
+   after 9d: none.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -156,14 +186,18 @@ from repro_torch.kernels.xor_reduce import (chain_plan,  # noqa: E402
                                             xor_reduce_words)
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import (mamba2, rwkv6, transformer,  # noqa: E402
+                                 whisper, zamba2)
 from repro_torch.serve import serve_step  # noqa: E402
 from repro_torch.sim.suite import (MonteCarloSuite, SampleSpace,  # noqa: E402
                                    TraceSuite)
 from repro_torch.sim.sweep import run_sweep  # noqa: E402
-from repro_torch.train.train_step import make_train_step  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.train_step import (TrainConfig, init_state,  # noqa: E402
+                                          make_train_step)
 
 MIB = 1 << 20
 BLOCK_BYTES = 128 * MIB            # the paper's 128 MB chunk; HDFS block size
@@ -267,6 +301,74 @@ SERVE_CPU = {
                                    batch=2, prompt=64, steps=8, tol=None),
 }
 HBM_BYTES_PER_S = 3.35e12          # the decode bound's memory rate (H100 SXM)
+# phase 9: the other model families, plain PyTorch on the card. 9a: the
+# serve launcher at zamba2_7b's full width and depth (81 mamba2 layers, 13
+# shared-attention points and 3 trailing layers, d=3584, 112 SSM heads of
+# 64 x 64, 32 KV heads of 112, vocab 32,000; 6.97e9 params, bf16): B=8
+# prompts of 512 tokens, 32 greedy tokens.
+FAMILY_SERVE_ARGS = ["--arch", "zamba2_7b", "--full", "--batch", "8",
+                     "--prompt-len", "512", "--gen-tokens", "32"]
+# 9b: decode == forward at full width (prefill T-k tokens, decode k, each
+# step's logits against the teacher-forced forward): rwkv6_16b at all 24
+# layers with its chunk invariance (the forward at the WKV chunk of 64
+# against 16), zamba2_7b at 12 layers (2 shared points), whisper_medium
+# at 24 + 24 layers over 1,500 frames (a 4-token prompt). Tolerances, from
+# `scripts/family_tolerances.py --cases equiv` (the CPU at these widths
+# with d_ff cut to 1,024 and the vocabulary to 8,192; B=2, these prompts):
+# the bf16 models round every layer's output on both paths in other
+# orders, and the recurrent families carry each rounding forward in
+# their state. rwkv6 in bf16 is chaotic at random init: its chunk-16 and
+# chunk-64 forwards (the same sums in fp32, then rounded to bf16)
+# differed by 0.93 and decode from the forward by 0.07-0.34 (growing over
+# the 8 steps), while in fp32 the chunkings agree to 3.1e-3 and decode to
+# 1.2e-3 (`unembed`'s bf16 rounding). So rwkv6 is held in fp32 (2e-2 on
+# both, phase 8's fp32 bar) and its bf16 run is reported, not held.
+# zamba2 in bf16 measured 0.06-0.21 over the 8 steps (growing; the
+# forward's SDPA against the decode's chunked softmax, the chunked SSD
+# against its recurrence): 0.3 on the card, whose kernels round in their
+# own orders again; in fp32 1.1e-3 to 2.4e-3: 2e-2. whisper in bf16
+# measured 0.041-0.046 at 24 + 24 layers: phase 8's 0.15 for full depth.
+FAMILY_EQUIV = {
+    "rwkv6_16b_fp32": dict(arch="rwkv6_16b", layers=None, batch=2,
+                           prompt=512, steps=8, dtype="float32", tol=2e-2,
+                           chunk_tol=2e-2),
+    "rwkv6_16b": dict(layers=None, batch=2, prompt=512, steps=8, tol=None,
+                      chunk_tol=None),
+    "zamba2_7b": dict(layers=12, batch=2, prompt=512, steps=8, tol=0.3),
+    "zamba2_7b_fp32": dict(arch="zamba2_7b", layers=12, batch=2, prompt=512,
+                           steps=8, dtype="float32", tol=2e-2),
+    "whisper_medium": dict(layers=None, batch=2, frames=1500, prompt=4,
+                           steps=8, tol=0.15),
+}
+# 9c: prefill + 8 greedy decode steps on the card against the same params
+# on the CPU (fed the card's tokens), in fp32 at full width: rwkv6 at 2
+# layers, zamba2 at 6 (one shared point), whisper at 2 + 2 over 1,500
+# frames. The fp32 models still round q, k, v and the probabilities (and
+# `unembed`'s inputs) to bf16 as the reference does, and the card's
+# reassociated fp32 sums flip some of those roundings: on the CPU at these
+# widths (d_ff and the vocabulary cut) a 1e-7 relative perturbation of
+# the params moved the logits by up to 1.5e-3 (rwkv6), 2.0e-3 (zamba2)
+# and 6.0e-3 (whisper) (`scripts/family_tolerances.py --cases cpu`):
+# phase 8's fp32 bar of 2e-2 for all three.
+FAMILY_CPU = {
+    "rwkv6_16b_fp32": dict(arch="rwkv6_16b", layers=2, batch=2, prompt=64,
+                           steps=8, dtype="float32", tol=2e-2),
+    "zamba2_7b_fp32": dict(arch="zamba2_7b", layers=6, batch=2, prompt=64,
+                           steps=8, dtype="float32", tol=2e-2),
+    "whisper_medium_fp32": dict(arch="whisper_medium", layers=2, batch=2,
+                                frames=1500, prompt=4, steps=8,
+                                dtype="float32", tol=2e-2),
+}
+# 9d: `train_step.make_train_step` (AdamW, fp32 moments) at full width, 3
+# steps each: rwkv6_16b and whisper_medium at full depth, zamba2_7b at 12
+# layers: at its full depth the params, gradients and two fp32 moments
+# alone take 6.97e9 x 12 = 8.4e10 bytes, more than the card's 80 GB.
+# whisper's stream gives 1,500 frames and 448 decoder tokens.
+FAMILY_TRAIN = {
+    "rwkv6_16b": dict(layers=None, batch=8, seq=1024, steps=3),
+    "whisper_medium": dict(layers=None, batch=8, seq=1500, steps=3),
+    "zamba2_7b": dict(layers=12, batch=8, seq=1024, steps=3),
+}
 
 KERNELS = {
     "gf256_matmul_planes": dict(
@@ -1448,11 +1550,13 @@ def train_phase(records: list, enc: dict, device: str = "cuda") -> dict:
 
 
 def arch_config(arch: str, layers: int | None = None, dtype: str | None = None):
-    """A published config, its depth cut to `layers` and its dtype replaced
-    where given; the widths stay."""
+    """A published config, its depth cut to `layers` (the encoder's too)
+    and its dtype replaced where given; the widths stay."""
     changes = {}
     if layers is not None:
         changes["num_layers"] = layers
+        if get_arch(arch).is_encoder_decoder:
+            changes["encoder_layers"] = layers
     if dtype is not None:
         changes["dtype"] = dtype
     return dataclasses.replace(get_arch(arch), **changes)
@@ -1549,42 +1653,77 @@ def equiv_check(name: str, spec: dict, device, params=None) -> dict:
     return rec
 
 
+def serve_chunk(cfg, prompt: int) -> int:
+    """The attention chunk a serve run uses: the launcher's min(1024,
+    prompt) for decoder-only configs; 1,024 for whisper, whose encoder
+    attends over the frames, not the prompt."""
+    return 1024 if cfg.is_encoder_decoder else min(1024, prompt)
+
+
+def frames_on(cfg, batch: int, frames: int, seed: int, device):
+    """Stub encoder frame embeddings (B, frames, d), standard normal from
+    `seed` (numpy), fp32 on `device`."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (batch, frames, cfg.d_model)).astype(np.float32)).to(device)
+
+
 @torch.inference_mode()
-def greedy_logits(params, cfg, tokens, steps: int, kv_dtype: str,
+def greedy_logits(params, cfg, batch: dict, steps: int, kv_dtype: str,
                   forced=None) -> tuple[list, list]:
     """Prefill, then `steps` decode steps: each stage's logits (on the
     host) and the token fed next, the argmax or, with `forced`, those
-    tokens."""
-    chunk = min(1024, tokens.shape[1])
-    logits, cache = transformer.prefill(params, cfg, tokens,
-                                        tokens.shape[1] + steps, chunk=chunk,
-                                        kv_dtype=kv_dtype)
+    tokens. The transformer runs its KV-cache path with `kv_dtype`; the
+    other families their serve steps (`serve/serve_step.py`)."""
+    tokens = batch["tokens"]
+    chunk = serve_chunk(cfg, tokens.shape[1])
+    max_len = tokens.shape[1] + steps
+    if model_lib.family_module(cfg) is transformer:
+        logits, cache = transformer.prefill(params, cfg, tokens, max_len,
+                                            chunk=chunk, kv_dtype=kv_dtype)
+
+        def step(token, cache):
+            return transformer.decode_step(params, cfg, token, cache,
+                                           chunk=chunk)
+    else:
+        logits, cache = serve_step.make_prefill(
+            cfg, chunk=chunk, max_len=max_len)(params, batch)
+        make = (serve_step.make_whisper_decode_step if cfg.is_encoder_decoder
+                else serve_step.make_decode_step)
+        fn = make(cfg, chunk=chunk)
+
+        def step(token, cache):
+            return fn(params, token, cache)
     outs, fed = [logits.float().cpu()], []
     for i in range(steps):
         token = (forced[i].to(tokens.device) if forced is not None
                  else torch.argmax(logits, dim=-1).to(torch.int32))
         fed.append(token.cpu())
-        logits, cache = transformer.decode_step(params, cfg, token, cache,
-                                                chunk=chunk)
+        logits, cache = step(token, cache)
         outs.append(logits.float().cpu())
     return outs, fed
 
 
-def card_vs_cpu(name: str, spec: dict, device) -> dict:
-    """8d: prefill + greedy decode on the card against the same params on
-    the CPU, which is fed the card's tokens; each stage's logits within
-    the tolerance and the greedy tokens equal wherever the card's top-2
-    margin exceeds twice it (`tol=None`: reported, not held)."""
+def card_vs_cpu(name: str, spec: dict, device, phase: str = "phase 8") -> dict:
+    """8d / 9c: prefill + greedy decode on the card against the same
+    params on the CPU, which is fed the card's tokens; each stage's logits
+    within the tolerance and the greedy tokens equal wherever the card's
+    top-2 margin exceeds twice it (`tol=None`: reported, not held)."""
     cfg = arch_config(spec["arch"], spec["layers"], spec.get("dtype"))
     kv_dtype = spec.get("kv_dtype", "bf16")
     params = device_params(cfg, 4, device)
-    tokens = prompt_tokens(cfg, spec["batch"], spec["prompt"], 5, device)
+    batch = {"tokens": prompt_tokens(cfg, spec["batch"], spec["prompt"], 5,
+                                     device)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = frames_on(cfg, spec["batch"], spec["frames"], 6,
+                                    device)
     tic = time.perf_counter()
-    card, fed = greedy_logits(params, cfg, tokens, spec["steps"], kv_dtype)
+    card, fed = greedy_logits(params, cfg, batch, spec["steps"], kv_dtype)
     card_s = time.perf_counter() - tic
     params = tree.map(lambda x: x.cpu(), params)
     tic = time.perf_counter()
-    cpu, _ = greedy_logits(params, cfg, tokens.cpu(), spec["steps"],
+    cpu, _ = greedy_logits(params, cfg, {k: v.cpu() for k, v in
+                                         batch.items()}, spec["steps"],
                            kv_dtype, forced=fed)
     cpu_s = time.perf_counter() - tic
     del params
@@ -1600,12 +1739,13 @@ def card_vs_cpu(name: str, spec: dict, device) -> dict:
             clear = margin > 2 * tol
             close += int((~clear).sum())
             if not bool(same[clear].all()):
-                raise AssertionError(f"phase 8: {name}: a greedy token "
+                raise AssertionError(f"{phase}: {name}: a greedy token "
                                      "differs between the card and the CPU "
                                      "at a clear margin")
     rec = dict(case=name, arch=cfg.name, layers=cfg.num_layers,
                dtype=cfg.dtype, kv_dtype=kv_dtype, batch=spec["batch"],
-               prompt=spec["prompt"], steps=spec["steps"], tol=tol,
+               prompt=spec["prompt"], frames=spec.get("frames"),
+               steps=spec["steps"], tol=tol,
                max_abs_err=max(errs), stage_errs=errs,
                greedy_tokens_equal=agree, greedy_tokens=len(card) *
                spec["batch"], close_calls=close if tol is not None else None,
@@ -1613,9 +1753,9 @@ def card_vs_cpu(name: str, spec: dict, device) -> dict:
     print(f"   card vs CPU, {name}: {json.dumps(rec)}")
     for lg in card:
         if not torch.isfinite(lg).all():
-            raise AssertionError(f"phase 8: {name}: card logits not finite")
+            raise AssertionError(f"{phase}: {name}: card logits not finite")
     if tol is not None and not max(errs) < tol:
-        raise AssertionError(f"phase 8: {name}: card and CPU logits differ "
+        raise AssertionError(f"{phase}: {name}: card and CPU logits differ "
                              f"by {max(errs)!r} >= {tol}")
     return rec
 
@@ -1714,6 +1854,230 @@ def serve_phase(records: list, device: str = "cuda") -> dict:
         decode_vs_forward=equiv, card_vs_cpu=vs_cpu,
         launches={"run": run_launches, "phase": phase_launches},
         phase_s=time.perf_counter() - start)
+    print(json.dumps(rec))
+    records.append(rec)
+    return rec
+
+
+def zamba2_step_bytes(cfg, params, batch: int, positions: int) -> int:
+    """Bytes a zamba2 decode step must move with `positions` filled cache
+    slots: every weight byte read once, every layer's SSM (fp32) and conv
+    state read and written once, and the filled k / v of every shared
+    point read once."""
+    weights = sum(p.numel() * p.element_size() for p in tree.leaves(params))
+    d_in, heads, n, conv_dim = mamba2.dims(cfg)
+    ssm = cfg.num_layers * batch * heads * mamba2.MAMBA_HEAD_DIM * n * 4
+    conv = cfg.num_layers * batch * (mamba2.CONV_K - 1) * conv_dim * 2
+    kv = (2 * zamba2.num_shared_points(cfg) * batch * positions
+          * cfg.num_kv_heads * cfg.hd * 2)
+    return weights + 2 * ssm + 2 * conv + kv
+
+
+def family_serve(device) -> dict:
+    """9a: the serve launcher at zamba2_7b's full width and depth, each
+    decode step beside its bound, then a warm prefill and one steady
+    decode step traced."""
+    args = serve_launch.parse_args(FAMILY_SERVE_ARGS)
+    cfg = get_arch(args.arch).reduced() if args.reduced else \
+        get_arch(args.arch)
+    params, run = serve_launch.run([*FAMILY_SERVE_ARGS, "--device", device])
+    tokens = run["tokens"]
+    if (tuple(tokens.shape) != (args.batch, args.gen_tokens)
+            or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size):
+        raise AssertionError(f"phase 9a: generated {tuple(tokens.shape)} "
+                             f"tokens in [{int(tokens.min())}, "
+                             f"{int(tokens.max())}]")
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    steps_ms = [t * 1e3 for t in run["decode_step_s"]]
+    bounds_ms = [zamba2_step_bytes(cfg, params, args.batch,
+                                   args.prompt_len + i + 1)
+                 / HBM_BYTES_PER_S * 1e3 for i in range(args.gen_tokens)]
+    median_ms = statistics.median(steps_ms[1:])
+    print(f"   zamba2_7b ({n_params} params): prefill ({args.batch} x "
+          f"{args.prompt_len} tokens) {run['prefill_s'] * 1e3:.3f} ms; "
+          f"decode first {steps_ms[0]:.3f} ms, median {median_ms:.3f} ms "
+          f"({min(steps_ms[1:]):.3f}-{max(steps_ms[1:]):.3f}; "
+          f"{args.batch / median_ms * 1e3:.1f} tokens/s) against a bound "
+          f"of {statistics.median(bounds_ms):.4f} ms; peak device memory "
+          f"{run['peak_memory_bytes']} bytes")
+    batch = serve_launch.prompts(cfg, args.batch, args.prompt_len, args.seed)
+    chunk = min(1024, args.prompt_len)
+    with torch.inference_mode():
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        prefill = serve_step.make_prefill(cfg, chunk=chunk,
+                                          max_len=args.prompt_len + 4)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        logits, cache = prefill(params, batch)     # warm: the run's came first
+        torch.cuda.synchronize()
+        prefill_warm_ms = (time.perf_counter() - tic) * 1e3
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        step = serve_step.make_decode_step(cfg, chunk=chunk)
+        _, cache = step(params, token, cache)
+        traced = profile_device(lambda: step(params, token, cache),
+                                "profile_zamba2_decode_step",
+                                TRAIN_STEP_GROUPS)
+    print(json.dumps(traced))
+    print(f"   a second prefill {prefill_warm_ms:.3f} ms; the traced decode "
+          f"step: {traced['device_kernels']} kernels, device busy "
+          f"{traced['device_busy_ms']:.3f} ms of "
+          f"{traced['wall_ms_profiled']:.3f}")
+    del cache, logits, params
+    torch.cuda.empty_cache()
+    return dict(
+        argv=FAMILY_SERVE_ARGS, params=n_params,
+        prefill_ms=run["prefill_s"] * 1e3, prefill_warm_ms=prefill_warm_ms,
+        decode_step_ms=steps_ms, decode_first_ms=steps_ms[0],
+        decode_median_ms=median_ms,
+        decode_range_ms=[min(steps_ms[1:]), max(steps_ms[1:])],
+        decode_tokens_per_s=args.batch / median_ms * 1e3,
+        run_tokens_per_s=run["tokens_per_s"], run_wall_s=run["seconds"],
+        decode_bound_ms=statistics.median(bounds_ms),
+        decode_bound_by="bytes",
+        max_memory_allocated=run["peak_memory_bytes"],
+        sample=tokens[0, :12].tolist(), profile=traced,
+        launches_per_decode_step=traced["device_kernels"])
+
+
+@torch.inference_mode()
+def family_equiv(name: str, spec: dict, device) -> dict:
+    """9b: one case of `FAMILY_EQUIV`: each decode step's logits against
+    the teacher-forced forward's at its position, within the tolerance
+    (`tol=None`: reported, not held); rwkv6's forward at chunk 16 against
+    chunk 64 too."""
+    cfg = arch_config(spec.get("arch", name), spec["layers"],
+                      spec.get("dtype"))
+    params = device_params(cfg, 1, device)
+    length = spec["prompt"] + spec["steps"]
+    tokens = prompt_tokens(cfg, spec["batch"], length, 2, device)
+    batch = {"tokens": tokens[:, :spec["prompt"]]}
+    chunk = serve_chunk(cfg, spec["prompt"])
+    rec = dict(case=name, arch=cfg.name, layers=cfg.num_layers,
+               dtype=cfg.dtype, batch=spec["batch"], prompt=spec["prompt"],
+               steps=spec["steps"], tol=spec["tol"])
+    tic = time.perf_counter()
+    if cfg.is_encoder_decoder:
+        batch["frames"] = frames_on(cfg, spec["batch"], spec["frames"], 3,
+                                    device)
+        rec["frames"] = spec["frames"]
+        full, _ = whisper.forward(params, cfg, batch["frames"], tokens,
+                                  chunk=chunk, remat=False)
+        step = serve_step.make_whisper_decode_step(cfg, chunk=chunk)
+    else:
+        if cfg.ssm_kind == "rwkv6":
+            full, _ = rwkv6.forward(params, cfg, tokens, remat=False)
+            c16, _ = rwkv6.forward(params, cfg, tokens, chunk=16,
+                                   remat=False)
+            rec["chunk_16_vs_64"] = float((c16 - full).abs().max())
+            rec["chunk_tol"] = spec["chunk_tol"]
+            del c16
+        else:
+            full, _ = zamba2.forward(params, cfg, tokens, attn_chunk=chunk,
+                                     remat=False)
+        step = serve_step.make_decode_step(cfg, chunk=chunk)
+    _, cache = serve_step.make_prefill(cfg, chunk=chunk, max_len=length)(
+        params, batch)
+    errs, step_ms = [], []
+    for i in range(spec["prompt"], length):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, tokens[:, i], cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"phase 9b: {name} decode step {i} logits "
+                                 "are not finite")
+        errs.append(float((lg - full[:, i]).abs().max()))
+    rec.update(max_abs_err=max(errs), step_errs=errs, decode_step_ms=step_ms,
+               decode_median_ms=statistics.median(step_ms),
+               seconds=time.perf_counter() - tic)
+    print(f"   decode == forward, {name} ({cfg.num_layers} layers): "
+          f"{json.dumps(rec)}")
+    if not np.isfinite(rec.get("chunk_16_vs_64", 0.0)):
+        raise AssertionError(f"phase 9b: {name}: a forward is not finite")
+    if spec["tol"] is not None and not max(errs) < spec["tol"]:
+        raise AssertionError(f"phase 9b: {name} decode differs from the "
+                             f"forward pass by {max(errs)!r} >= "
+                             f"{spec['tol']}")
+    if rec.get("chunk_tol") is not None and \
+            not rec["chunk_16_vs_64"] < spec["chunk_tol"]:
+        raise AssertionError(f"phase 9b: {name} forward at chunk 16 differs "
+                             f"from chunk 64 by {rec['chunk_16_vs_64']!r} >= "
+                             f"{spec['chunk_tol']}")
+    del params, cache, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_train(name: str, spec: dict, device) -> dict:
+    """9d: `spec["steps"]` train steps (AdamW, fp32 moments) at full width
+    on the synthetic stream: each step's loss finite, the params changed;
+    step times, peak memory and one more step traced."""
+    cfg = arch_config(name, spec["layers"])
+    shape = ShapeConfig("chip", "train", spec["seq"], spec["batch"])
+    tcfg = TrainConfig(adamw=AdamWConfig(peak_lr=3e-3, warmup_steps=1))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(7, cfg, tcfg, device=device)
+    n_params = sum(p.numel() for p in tree.leaves(state["params"]))
+    params0 = state["params"]
+    step_fn = make_train_step(cfg, tcfg)
+    stream = SyntheticStream(cfg, shape)
+    losses, step_s = [], []
+    for i in range(spec["steps"]):
+        batch = stream.batch_at(i)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - tic)
+    peak = torch.cuda.max_memory_allocated()
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(tree.leaves(params0), tree.leaves(state["params"])))
+    leaves = len(tree.leaves(params0))
+    del params0
+    tokens = {k: list(v.shape) for k, v in batch.items()}
+    traced = profile_device(lambda: step_fn(state, batch),
+                            f"profile_{name}_train_step", TRAIN_STEP_GROUPS)
+    rec = dict(arch=name, layers=cfg.num_layers, params=n_params,
+               batch_shapes=tokens, losses=losses, step_s=step_s,
+               first_step_s=step_s[0],
+               median_step_s=statistics.median(step_s[1:]),
+               max_memory_allocated=peak, leaves_changed=changed,
+               leaves=leaves, profile=traced)
+    print(f"   train {name} ({cfg.num_layers} layers, {n_params} params, "
+          f"{tokens}): {json.dumps({k: v for k, v in rec.items() if k != 'profile'})}")
+    print(json.dumps(traced))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"phase 9d: {name}: a loss is not finite: "
+                             f"{losses}")
+    if changed == 0:
+        raise AssertionError(f"phase 9d: {name}: no param changed")
+    del state, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_phase(records: list, device: str = "cuda") -> dict:
+    """Phase 9: 9a zamba2_7b served at full width; 9b decode == forward at
+    full width; 9c card against CPU in fp32; 9d train steps; 9e the six
+    kernels' launches over all of it (none)."""
+    start = time.perf_counter()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    serve = family_serve(device)
+    equiv = [family_equiv(name, spec, device)
+             for name, spec in FAMILY_EQUIV.items()]
+    vs_cpu = [card_vs_cpu(name, spec, device, phase="phase 9c")
+              for name, spec in FAMILY_CPU.items()]
+    torch.cuda.empty_cache()
+    trains = [family_train(name, spec, device)
+              for name, spec in FAMILY_TRAIN.items()]
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"phase 9: launches {launches}")
+    rec = dict(phase="families", serve=serve, decode_vs_forward=equiv,
+               card_vs_cpu=vs_cpu, train=trains, launches=launches,
+               phase_s=time.perf_counter() - start)
     print(json.dumps(rec))
     records.append(rec)
     return rec
@@ -1851,12 +2215,14 @@ def main() -> None:
     train = train_phase(records, checkpoint_encode)
     train_launches = train["launches"]
     serve_launches = serve_phase(records)["launches"]["phase"]
+    family_launches = family_phase(records)["launches"]
     print(json.dumps({"launches": {"serial": serial_launches,
                                    **{f"batched_b{b}": lc for b, lc in
                                       zip(BATCHES, batch_launches)},
                                    "sweep": sweep_launches,
                                    "train_checkpoint": train_launches,
-                                   "serve": serve_launches}}))
+                                   "serve": serve_launches,
+                                   "families": family_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
     # B=4 (a new dict: the phases' records keep their own counts); the
     # plane kernels run on no path
@@ -1876,6 +2242,7 @@ def main() -> None:
                 **{k: (v if kname == "gf256_matmul_bytes" else 0)
                    for k, v in train_launches.items() if k != "run"}},
             launches_serve=serve_launches[kname],
+            launches_families=family_launches[kname],
             max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],

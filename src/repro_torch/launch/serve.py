@@ -44,11 +44,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def prompts(cfg, batch: int, prompt_len: int, seed: int) -> dict:
     """The serve batch of a command line: uniform random prompt tokens
-    from `seed` (numpy), and for M-RoPE configs the text positions on all
-    three streams."""
+    from `seed` (numpy); for encoder-decoder configs standard normal
+    frame embeddings (B, prompt_len, d) from the same generator, as the
+    reference launcher passes; for M-RoPE configs the text positions on
+    all three streams."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab_size, size=(batch, prompt_len),
                                   dtype=np.int64).astype(np.int32)}
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal(
+            (batch, prompt_len, cfg.d_model)).astype(np.float32)
     if cfg.mrope:
         pos = np.broadcast_to(np.arange(prompt_len, dtype=np.int32),
                               (3, batch, prompt_len))

@@ -2,9 +2,11 @@
 int8-KV decode path), SwiGLU/GeGLU MLP, GShard-style MoE, embeddings.
 
 Params are nested dicts of tensors with the JAX package's names and
-shapes. Math runs in fp32 where the reference's does (norms, RoPE,
-attention scores, the MoE router, the unembedding's accumulation) and in
-the params' dtype elsewhere.
+shapes; each init_* has a matching logical_* tree of axis names, in the
+off-mesh layout (the others need a device mesh, ROADMAP item 17h). Math
+runs in fp32 where the reference's does (norms, RoPE, attention scores,
+the MoE router, the unembedding's accumulation) and in the params' dtype
+elsewhere.
 
 Attention has two routes. Causal bf16 self-attention at positions
 0..T-1 with no window (the train forward) calls `causal_self_attention`,
@@ -208,6 +210,29 @@ def init_attention(key, cfg, dtype) -> dict:
     return p
 
 
+def attn_shard_mode(cfg, rules: MeshRules, *, decode: bool = False) -> str:
+    """The attention weights' tensor-shard layout: "none" off-mesh, the
+    only case here (`MeshRules` takes no mesh)."""
+    return "none"
+
+
+def _mesh_layout(what: str):
+    raise NotImplementedError(f"the {what} layout needs a device mesh "
+                              "(ROADMAP item 17h)")
+
+
+def logical_attention(cfg, mode: str = "heads") -> dict:
+    """Heads on the tensor axis (the "heads" and "none" modes); the
+    mesh-only "heads_repkv" and "hd" layouts raise."""
+    if mode not in ("heads", "none"):
+        _mesh_layout(f"{mode!r} attention")
+    t = {"wq": ("d", "tp", None), "wk": ("d", "tp", None),
+         "wv": ("d", "tp", None), "wo": ("tp", None, "d")}
+    if cfg.qkv_bias:
+        t |= {"bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
+    return t
+
+
 def attention_qkv(params, x, cfg):
     q = torch.einsum("btd,dhk->bthk", x, params["wq"])
     k = torch.einsum("btd,dhk->bthk", x, params["wk"])
@@ -233,6 +258,10 @@ def init_mlp(key, cfg, dtype, d_ff: int | None = None) -> dict:
     }
 
 
+def logical_mlp(cfg) -> dict:
+    return {"wi_gate": ("d", "tp"), "wi_up": ("d", "tp"), "wo": ("tp", "d")}
+
+
 def mlp(params, x, cfg):
     gate = torch.einsum("btd,df->btf", x, params["wi_gate"])
     up = torch.einsum("btd,df->btf", x, params["wi_up"])
@@ -249,6 +278,15 @@ def init_moe(key, cfg, dtype) -> dict:
         "wi_up": _dense_init(key, (e, d, f), d, dtype),
         "wo": _dense_init(key, (e, f, d), f, dtype),
     }
+
+
+def logical_moe(cfg, ep: bool) -> dict:
+    """Tensor-parallel inside each expert; expert parallelism (`ep`) is a
+    mesh layout and raises."""
+    if ep:
+        _mesh_layout("expert-parallel MoE")
+    return {"router": ("d", None), "wi_gate": (None, "d", "tp"),
+            "wi_up": (None, "d", "tp"), "wo": (None, "tp", "d")}
 
 
 @dataclasses.dataclass
@@ -326,6 +364,10 @@ def moe(params, x, cfg, rules: MeshRules = NO_MESH,
 def init_embed(key, cfg, dtype) -> dict:
     return {"table": _dense_init(key, (cfg.vocab_size, cfg.d_model),
                                  cfg.d_model, dtype)}
+
+
+def logical_embed(cfg) -> dict:
+    return {"table": ("tp", "d")}
 
 
 def embed(params, tokens):

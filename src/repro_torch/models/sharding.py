@@ -5,9 +5,9 @@ logical axis ("d", "tp", "batch", "seq" or None) and `MeshRules` maps the
 names onto a device mesh. This port runs on one device, so only the
 no-mesh rules exist here: `NO_MESH` replicates everything, `constrain`
 / `tree_constrain` return their input, and `kv_cache_axes` gives the
-no-mesh layout of a KV cache. The mesh half (`spec`, `sharding`, the
-logical trees, the tensor-sharded cache layouts) waits for the
-multi-device slice (ROADMAP item 17h).
+no-mesh layout of a KV cache. The models' logical trees name the axes as
+the reference's do; the mesh half (`spec`, `sharding`, the tensor-sharded
+cache layouts) waits for the multi-device slice (ROADMAP item 17h).
 """
 from __future__ import annotations
 
@@ -39,6 +39,14 @@ NO_MESH = MeshRules(mesh=None)
 def tree_constrain(rules: MeshRules, tree, logical_tree):
     """Sharding constraints over a whole tree: the identity off-mesh."""
     return tree
+
+
+def stack_logical(logical_tree: dict) -> dict:
+    """A per-layer logical tree with a leading (replicated) layer axis on
+    every leaf, as stacked layer params carry."""
+    if isinstance(logical_tree, dict):
+        return {k: stack_logical(v) for k, v in logical_tree.items()}
+    return (None, *logical_tree)
 
 
 def kv_cache_axes(num_kv_heads: int, head_dim: int, rules: MeshRules):

@@ -23,7 +23,8 @@ from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import NO_MESH, MeshRules, kv_cache_axes
+from repro_torch.models.sharding import (NO_MESH, MeshRules, kv_cache_axes,
+                                         stack_logical)
 
 
 def _dtype(cfg: ArchConfig):
@@ -44,6 +45,31 @@ def init_layer(key, cfg: ArchConfig, dtype) -> dict:
     else:
         p["mlp"] = L.init_mlp(key, cfg, dtype)
     return p
+
+
+def logical_layer(cfg: ArchConfig, ep: bool, attn_mode: str = "heads") -> dict:
+    t = {
+        "ln1": (None,),
+        "attn": L.logical_attention(cfg, attn_mode),
+        "ln2": (None,),
+    }
+    if cfg.moe is not None:
+        t["moe"] = L.logical_moe(cfg, ep)
+    else:
+        t["mlp"] = L.logical_mlp(cfg)
+    return t
+
+
+def logical_tree(cfg: ArchConfig, rules: MeshRules, *,
+                 decode: bool = False) -> dict:
+    """The params' logical axes off-mesh (no expert parallelism; the
+    sequence-parallel and head-dim layouts need a mesh)."""
+    mode = L.attn_shard_mode(cfg, rules, decode=decode)
+    return {
+        "embed": L.logical_embed(cfg),
+        "layers": stack_logical(logical_layer(cfg, False, mode)),
+        "final_norm": (None,),
+    }
 
 
 def init_params(key, cfg: ArchConfig) -> dict:
@@ -73,14 +99,6 @@ def layer_windows(cfg: ArchConfig) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- blocks
-def _per_layer(stacked: dict) -> list[dict]:
-    """The stacked layer params as one dict of views a layer (one unbind
-    per leaf: under autograd its backward stacks the gradients once)."""
-    slices = [leaf.unbind(0) for leaf in tree.leaves(stacked)]
-    return [tree.unflatten(stacked, [s[i] for s in slices])
-            for i in range(len(slices[0]))]
-
-
 def _qkv_rope(lp, x, cfg, q_pos, pos3):
     """Pre-norm q, k, v of one layer, rotated: M-RoPE by `pos3` where the
     config has it and `pos3` is given, else RoPE by `q_pos`."""
@@ -161,7 +179,7 @@ def forward(
 
     aux = x.new_zeros((), dtype=torch.float32)
     ks, vs = [], []
-    for lp, window in zip(_per_layer(params["layers"]), windows):
+    for lp, window in zip(tree.unstack(params["layers"]), windows):
         if remat:
             x, lb, k, v = checkpoint(body, x, lp, window, use_reentrant=False)
         else:
@@ -281,7 +299,7 @@ def decode_step(params, cfg, token, cache, *, rules=NO_MESH, chunk=4096,
     kv_pos[:, at] = idx
     start = min(max(idx - (w - 1), 0), max_len - w)
     windows = layer_windows(cfg).tolist()
-    for i, (lp, window) in enumerate(zip(_per_layer(params["layers"]),
+    for i, (lp, window) in enumerate(zip(tree.unstack(params["layers"]),
                                          windows)):
         q, k, v = _qkv_rope(lp, x, cfg, q_pos, pos3)
         if quantized:

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import rwkv6, whisper, zamba2
 from repro_torch.models.sharding import NO_MESH, MeshRules
 
 
@@ -29,13 +30,34 @@ def make_decode_step(cfg: ArchConfig, rules: MeshRules = NO_MESH,
 
 def make_prefill(cfg: ArchConfig, rules: MeshRules = NO_MESH,
                  chunk: int = 1024, max_len: int | None = None):
-    """(params, batch) -> (last logits, cache); the cache holds `max_len`
-    positions (default: the prompt and 64 more)."""
+    """(params, batch) -> (last logits, serve state). A decoder-only cache
+    holds `max_len` positions (default: the prompt and 64 more; rwkv6's
+    state does not grow); whisper encodes `batch["frames"]`, computes the
+    cross K/V once and decodes the prompt into a self cache of
+    `max_decoder_len`, returning {"self", "xk", "xv"}."""
     mod = M.family_module(cfg)
 
+    @torch.inference_mode()
     def prefill(params, batch):
+        if cfg.is_encoder_decoder:
+            frames = batch["frames"]
+            memory = whisper.encode(params, cfg, frames, rules=rules,
+                                    chunk=chunk, remat=False)
+            xk, xv = whisper.cross_kv(params, cfg, memory, rules=rules)
+            cache = whisper.init_self_cache(cfg, frames.shape[0],
+                                            cfg.max_decoder_len, rules,
+                                            device=frames.device)
+            logits, cache = whisper.decode(
+                params, cfg, batch["tokens"], xk=xk, xv=xv, self_cache=cache,
+                rules=rules, chunk=chunk, remat=False)
+            return logits[:, -1], {"self": cache, "xk": xk, "xv": xv}
         tokens = batch["tokens"]
         ml = max_len or tokens.shape[1] + 64
+        if mod is rwkv6:
+            return mod.prefill(params, cfg, tokens, rules=rules)
+        if mod is zamba2:
+            return mod.prefill(params, cfg, tokens, ml, rules=rules,
+                               attn_chunk=chunk)
         return mod.prefill(
             params, cfg, tokens, ml, rules=rules, chunk=chunk,
             pos3=batch.get("pos3"), vision_embeds=batch.get("vision_embeds"))
@@ -44,9 +66,16 @@ def make_prefill(cfg: ArchConfig, rules: MeshRules = NO_MESH,
 
 def make_whisper_decode_step(cfg: ArchConfig, rules: MeshRules = NO_MESH,
                              chunk: int = 4096):
-    raise NotImplementedError(
-        f"{cfg.name}: the encoder-decoder family (whisper) is not ported "
-        "yet (ROADMAP item 17d.2)")
+    """(params, token, {"self", "xk", "xv"}) -> (logits, new state); the
+    self cache is written in place."""
+    @torch.inference_mode()
+    def decode_step(params, token, cache):
+        logits, self_new = whisper.decode(
+            params, cfg, token[:, None], xk=cache["xk"], xv=cache["xv"],
+            self_cache=cache["self"], rules=rules, chunk=chunk, remat=False)
+        return logits[:, 0], {"self": self_new, "xk": cache["xk"],
+                              "xv": cache["xv"]}
+    return decode_step
 
 
 def _sync(device: torch.device) -> None:
@@ -63,7 +92,8 @@ def generate(params, cfg: ArchConfig, batch: dict, steps: int, *,
     `key`) generation. Returns (B, steps) int32 tokens.
 
     `batch` holds numpy arrays or tensors ("tokens" (B, T), optionally
-    "pos3" (3, B, T) and "vision_embeds"); they are moved to `device`
+    "pos3" (3, B, T) and "vision_embeds"; whisper also takes "frames"
+    (B, T_enc, d)); they are moved to `device`
     (`None` = the card; raises without one), where `params` must lie.
     With a list `step_times`, the host seconds of the prefill and of each
     decode step are appended, each ended by a device synchronize."""
@@ -75,7 +105,10 @@ def generate(params, cfg: ArchConfig, batch: dict, steps: int, *,
     prompt_len = batch["tokens"].shape[1]
     prefill = make_prefill(cfg, rules, chunk=chunk,
                            max_len=prompt_len + steps)
-    step_fn = make_decode_step(cfg, rules, chunk)
+    if cfg.is_encoder_decoder:
+        step_fn = make_whisper_decode_step(cfg, rules, chunk)
+    else:
+        step_fn = make_decode_step(cfg, rules, chunk)
 
     def clocked(fn, *args):
         if step_times is None:

@@ -29,6 +29,15 @@ def map(fn, tree, *rest):
             for key in tree}
 
 
+def unstack(stacked) -> list:
+    """A tree of stacked leaves as one tree of views per index of their
+    leading axis (one unbind per leaf: under autograd its backward stacks
+    the gradients once)."""
+    slices = [leaf.unbind(0) for leaf in leaves(stacked)]
+    return [unflatten(stacked, [s[i] for s in slices])
+            for i in range(len(slices[0]))]
+
+
 def unflatten(template, new_leaves):
     """A tree of `template`'s structure holding `new_leaves` in order."""
     it = iter(new_leaves)

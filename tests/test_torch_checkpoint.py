@@ -3,8 +3,10 @@
 `tests/test_checkpoint.py`'s matrix runs on the port's own train state
 (`device="cpu"`): round trip, lost domains (3,) and (1, 5), too many
 losses, a corrupt domain, async save, `latest_step`. For the same state
-(the reference's init, converted) both packages write the same domain
-files and checksums and the same manifest fields, `treedef` excepted;
+(the reference's init, converted: smollm, and the rwkv6 and zamba2
+states with their fp32 leaves among bf16) both packages write the same
+domain files and checksums and the same manifest fields, `treedef`
+excepted;
 each loads the other's checkpoint, and the repair is priced to 1e-6 rtol
 of the reference (it matches exactly). `tests/test_ft.py`'s end-to-end
 failure recovery runs on the port. Bytes are compared exactly.
@@ -226,6 +228,47 @@ def test_checkpoints_cross_load(ref_state, tmp_path, lost):
         np.testing.assert_allclose(report.sim.total_time,
                                    jreport.sim.total_time, rtol=1e-6)
         assert report.sim.num_rounds == jreport.sim.num_rounds
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_16b", "zamba2_7b"])
+def test_recurrent_family_states_equal_reference(tmp_path, arch):
+    """A reduced rwkv6 or zamba2 train state (fp32 leaves `w0`, `u` or
+    `A_log`, `dt_bias`, `D` among bf16 params, fp32 moments): the same
+    domain files, checksums and manifest as the reference's (`treedef`
+    excepted), and a load with domains (1, 5) lost restores every leaf
+    bit for bit, as the reference's load does."""
+    jstate = jinit_state(jax.random.PRNGKey(0), jget_arch(arch).reduced(),
+                         JTrainConfig())
+    state = convert.state_from_reference(jax.tree.map(np.asarray, jstate),
+                                         "cpu")
+    dtypes = {str(x.dtype) for x in tree.leaves(state["params"])}
+    assert dtypes == {"torch.bfloat16", "torch.float32"}
+    ours = _checkpointer(tmp_path / "port")
+    theirs = _jcheckpointer(tmp_path / "ref")
+    ours.save(3, state, wait=True)
+    theirs.save(3, jstate, wait=True)
+    d_ours, d_theirs = ours._step_dir(3), theirs._step_dir(3)
+    names = sorted(os.listdir(d_theirs))
+    assert sorted(os.listdir(d_ours)) == names
+    for name in names:
+        if name.endswith(".bin"):
+            assert filecmp.cmp(os.path.join(d_ours, name),
+                               os.path.join(d_theirs, name), shallow=False)
+    m_ours = json.load(open(os.path.join(d_ours, "manifest.json")))
+    m_theirs = json.load(open(os.path.join(d_theirs, "manifest.json")))
+    assert m_ours.keys() == m_theirs.keys()
+    for key in m_theirs:
+        if key != "treedef":
+            assert m_ours[key] == m_theirs[key], key
+    restored, report = ours.load(state, lost_domains=(1, 5))
+    _assert_equal(state, restored)
+    jrestored, jreport = theirs.load(jstate, lost_domains=(1, 5))
+    for x, y in zip(tree.leaves(restored), jax.tree.leaves(jrestored)):
+        y = np.asarray(y)
+        assert np.array_equal(_raw(x).numpy(), y.reshape(-1).view(np.uint8))
+    assert (report.blocks_repaired, report.stripes_repaired) == (
+        jreport.blocks_repaired, jreport.stripes_repaired)
+    assert report.blocks_repaired > 0
 
 
 def test_end_to_end_failure_recovery(tmp_path):

@@ -82,15 +82,6 @@ def test_generate_records_step_times_and_samples():
                             device="cpu")
 
 
-def test_unported_families_raise_in_serve_steps():
-    for arch in ("whisper_medium", "rwkv6_16b", "zamba2_7b"):
-        cfg = get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError, match="17d.2"):
-            serve_step.make_prefill(cfg)
-    with pytest.raises(NotImplementedError, match="17d.2"):
-        serve_step.make_whisper_decode_step(get_arch("whisper_medium"))
-
-
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_plan_for_matches_reference(arch, shape):

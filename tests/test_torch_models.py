@@ -35,7 +35,7 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models import transformer as JT
 from repro_torch import convert, tree
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
@@ -294,13 +294,19 @@ def test_init_params_layout_matches_reference(arch):
     assert abs(float(table.std()) - 1 / np.sqrt(cfg.d_model)) < 0.01
 
 
-@pytest.mark.parametrize("arch", ["whisper_medium", "rwkv6_16b", "zamba2_7b"])
-def test_unsupported_family_raises(arch):
-    cfg = get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17d.2"):
-        M.family_module(cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.init_params(torch.Generator().manual_seed(0), cfg)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_family_and_logical_params_match_reference(arch):
+    """`family_module` picks the reference's family for every arch, and
+    the params' logical trees (train and decode) equal the reference's
+    off-mesh."""
+    cfg, jcfg = _configs(arch, None)
+    assert M.family_module(cfg).__name__.rsplit(".", 1)[1] == \
+        JM.family_module(jcfg).__name__.rsplit(".", 1)[1]
+    for decode in (False, True):
+        assert M.logical_params(cfg, M.NO_MESH, decode=decode) == \
+            JM.logical_params(jcfg, JM.NO_MESH, decode=decode)
+    with pytest.raises(NotImplementedError, match="17h"):
+        L.logical_attention(cfg, "hd")           # a mesh-only layout
 
 
 # ------------------------------------------------------- MoE and M-RoPE

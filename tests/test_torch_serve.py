@@ -379,17 +379,6 @@ def test_prefill_longer_than_cache_raises():
         T.prefill(params, cfg, _t(_tokens(cfg, t=9)), max_len=8)
 
 
-def test_unported_families_raise_in_serve_api():
-    for arch in ("whisper_medium", "rwkv6_16b", "zamba2_7b"):
-        cfg = get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError, match="17d.2"):
-            M.init_cache(cfg, 1, 4, device="cpu")
-        with pytest.raises(NotImplementedError, match="17d.2"):
-            M.cache_logical(cfg)
-        with pytest.raises(NotImplementedError, match="17d.2"):
-            M.decode_step({}, cfg, torch.zeros(1, dtype=torch.int32), {})
-
-
 def test_serving_keeps_no_autograd_graph():
     cfg, jcfg = _configs("smollm_360m", "float32")
     params, _ = _params(jcfg)
