@@ -140,7 +140,27 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    bytes): finite losses, changed params, step times, peak memory and one
    more step traced;
    9e. the six kernels' launch counters, set to 0 before 9a and read
-   after 9d: none.
+   after 9d: none;
+10. the multi-device half (`models/sharding.py` on DTensors,
+   `launch/mesh.py`, `ft/elastic.py`, `launch/dryrun.py`):
+   10a. a one-rank NCCL process group on the loopback and
+   `make_test_mesh(data=1, model=1)`: phase 7's smollm_360m (full width,
+   B=8, T=1024) trains 3 steps with `MeshRules(mesh=...)` from the same
+   init and batches as a no-mesh run, every op through DTensor dispatch
+   (the losses within `MESH_LOSS_TOL`; every leaf a DTensor on the
+   card); the DTensor state's EC checkpoint (leaves gathered whole) is
+   byte-equal to the plain save of the same values; domains (1, 5) are
+   lost and the load repairs through `gf256_matmul_bytes`, one launch a
+   stripe that lost data (the counters set to 0 before the saves and
+   the load and read after each); `reshard_state` onto a fresh mesh and
+   one more step, whose loss equals the no-mesh resume's;
+   10b. `launch/dryrun.py` at production size, each cell in its own
+   process, all at once: smollm_360m train_4k on the (16, 16) and
+   (2, 16, 16) meshes, qwen2_15b decode_32k and grok1_314b train_4k on
+   (16, 16), over fake 256- and 512-rank worlds and fake tensors on the
+   card's device type (nothing allocated): each record's per-device
+   bytes, FLOPs, collective bytes by kind, dominant roofline term (the
+   H100 SXM's datasheet constants) and seconds.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -150,6 +170,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -160,6 +181,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -188,6 +211,10 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.ft.elastic import reshard_state  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh, rules_for  # noqa: E402
+from repro_torch.models.sharding import tree_shardings  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import (mamba2, rwkv6, transformer,  # noqa: E402
                                  whisper, zamba2)
@@ -197,7 +224,7 @@ from repro_torch.sim.suite import (MonteCarloSuite, SampleSpace,  # noqa: E402
 from repro_torch.sim.sweep import run_sweep  # noqa: E402
 from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.train.train_step import (TrainConfig, init_state,  # noqa: E402
-                                          make_train_step)
+                                          make_train_step, state_logical)
 
 MIB = 1 << 20
 BLOCK_BYTES = 128 * MIB            # the paper's 128 MB chunk; HDFS block size
@@ -2083,6 +2110,264 @@ def family_phase(records: list, device: str = "cuda") -> dict:
     return rec
 
 
+# phase 10: the multi-device half. 10a: the trainer on a one-card mesh
+# (NCCL, one rank) at phase 7's full width and shape, from the same init
+# and batches as a no-mesh run; its checkpoint, repair and re-mesh.
+MESH_ARGS = [a for a in TRAIN_ARGS if a not in ("--fail-at", "6")]
+MESH_STEPS = 3
+MESH_LOST = (1, 5)
+# the mesh run's losses against the no-mesh run's: on a 1x1 mesh every op
+# runs through DTensor dispatch and the regions of `local_map` on the
+# whole tensors, the same kernels but for the MLP's and the projections'
+# products (`a @ b` where the no-mesh path calls `torch.einsum`), whose
+# bf16 results may differ in their last bit
+MESH_LOSS_TOL = 2e-2
+# 10b: the dry run (`launch/dryrun.py`) at production size on fake 256-
+# and 512-rank worlds, each cell in its own process, all four at once;
+# every tensor is fake, nothing is allocated on the card
+DRYRUN_CELLS = (("smollm_360m", "train_4k", "single"),
+                ("smollm_360m", "train_4k", "multi"),
+                ("qwen2_15b", "decode_32k", "single"),
+                ("grok1_314b", "train_4k", "single"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _on(x, device: str) -> bool:
+    local = x.to_local() if isinstance(x, DTensor) else x
+    return local.device.type == torch.device(device).type
+
+
+def mesh_train(records: list, device: str = "cuda") -> dict:
+    """Phase 10a: `make_train_step` with `MeshRules` on a one-rank mesh
+    against the no-mesh step, the EC checkpoint of the DTensor state
+    (byte-equal to the plain save), the repair after losing domains
+    `MESH_LOST` and one more step on a fresh mesh. Returns its record."""
+    start = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    backend = "nccl" if device == "cuda" else "gloo"
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    dist.init_process_group(backend, init_method=f"file://{work / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        free = shutil.disk_usage(work).free
+        if free < 2.5 * CKPT_BYTES:
+            raise RuntimeError(f"phase 10a needs {2.5 * CKPT_BYTES:.4g} "
+                               f"bytes free in {work}, has {free}")
+        argv = [*MESH_ARGS, "--ckpt-dir", str(work / "mesh"),
+                "--device", device]
+        args = train_launch.parse_args(argv)
+        cfg, shape, tcfg = train_launch.configs(args)
+        stream = SyntheticStream(cfg, shape)
+        batches = [stream.batch_at(i) for i in range(MESH_STEPS + 1)]
+        step = make_train_step(cfg, tcfg)
+        state0 = init_state(args.seed, cfg, tcfg, device=device)
+
+        plain, plain_losses = state0, []
+        for b in batches[:MESH_STEPS]:
+            plain, m = step(plain, b)
+            plain_losses.append(float(m["loss"]))
+        del plain
+
+        mesh = make_test_mesh(data=1, model=1, device=device)
+        rules = rules_for(mesh)
+        logical = state_logical(cfg, tcfg, rules)
+        placed = reshard_state(state0, rules.dmesh,
+                               tree_shardings(rules, state0, logical))
+        del state0
+        mesh_step = make_train_step(cfg, tcfg, rules)
+        mesh_losses, step_s = [], []
+        for b in batches[:MESH_STEPS]:
+            tic = time.perf_counter()
+            placed, m = mesh_step(placed, b)
+            loss = m["loss"]
+            if not (isinstance(loss, DTensor) and _on(loss, device)):
+                raise AssertionError(f"phase 10a: the loss is {type(loss)} "
+                                     f"on {loss.device}")
+            mesh_losses.append(float(loss.full_tensor()))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - tic)
+        off = [p for p, x in tree.items(placed)
+               if not (isinstance(x, DTensor) and _on(x, device))]
+        if off:
+            raise AssertionError(f"phase 10a: leaves off the mesh or the "
+                                 f"card: {off[:5]}")
+        diffs = [abs(a - b) for a, b in zip(mesh_losses, plain_losses)]
+        print(f"   mesh losses {mesh_losses}, no-mesh {plain_losses}, "
+              f"|diff| {diffs}; mesh step s {step_s}")
+        if not (np.isfinite(mesh_losses).all()
+                and max(diffs) <= MESH_LOSS_TOL):
+            raise AssertionError(f"phase 10a: mesh losses {mesh_losses} vs "
+                                 f"no-mesh {plain_losses}")
+
+        # the EC checkpoint of the DTensor state and of its whole values
+        reset_launches()
+        ck = train_launch.checkpointer(args, device)
+        tic = time.perf_counter()
+        ck.save(MESH_STEPS, placed, wait=True)
+        save_s = time.perf_counter() - tic
+        whole = tree.map(lambda x: x.full_tensor(), placed)
+        plain_args = train_launch.parse_args(
+            [*MESH_ARGS, "--ckpt-dir", str(work / "plain"), "--device",
+             device])
+        ck_plain = train_launch.checkpointer(plain_args, device)
+        ck_plain.save(MESH_STEPS, whole, wait=True)
+        save_launches = read_launches()
+        mesh_dir = Path(ck._step_dir(MESH_STEPS))
+        plain_dir = Path(ck_plain._step_dir(MESH_STEPS))
+        names = sorted(p.name for p in mesh_dir.iterdir())
+        if names != sorted(p.name for p in plain_dir.iterdir()) or any(
+                (mesh_dir / n).read_bytes() != (plain_dir / n).read_bytes()
+                for n in names):
+            raise AssertionError("phase 10a: the mesh state's checkpoint "
+                                 "files differ from the plain save's")
+        shutil.rmtree(work / "plain")
+        manifest = json.loads((mesh_dir / "manifest.json").read_text())
+        stripes = manifest["num_stripes"]
+        want = {k: 0 for k in WRAPPERS}
+        want["gf256_matmul_bytes"] = 2                # one encode a save
+        if save_launches != want:
+            raise AssertionError(f"phase 10a saves: launches "
+                                 f"{save_launches} != {want}")
+
+        # lose MESH_LOST, repair on load, re-mesh and step once more
+        reset_launches()
+        tic = time.perf_counter()
+        restored, report = ck.load(whole, lost_domains=MESH_LOST)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - tic
+        load_launches = read_launches()
+        want = {k: 0 for k in WRAPPERS}
+        want["gf256_matmul_bytes"] = lost_data_stripes(stripes, MESH_LOST)
+        if (load_launches != want
+                or report.stripes_repaired != want["gf256_matmul_bytes"]):
+            raise AssertionError(f"phase 10a load: launches {load_launches}"
+                                 f" != {want}, {report}")
+        if not same_bytes(restored, whole):
+            raise AssertionError("phase 10a load: a leaf differs from the "
+                                 "state saved")
+        del placed, whole
+        fresh = rules_for(make_test_mesh(data=1, model=1, device=device))
+        replaced = reshard_state(restored, fresh.dmesh, tree_shardings(
+            fresh, restored, state_logical(cfg, tcfg, fresh)))
+        resumed = float(make_train_step(cfg, tcfg, fresh)(
+            replaced, batches[MESH_STEPS])[1]["loss"].full_tensor())
+        del replaced
+        resumed_plain = float(step(restored, batches[MESH_STEPS])[1]["loss"])
+        print(f"   resumed on a fresh mesh: loss {resumed!r}, no-mesh "
+              f"{resumed_plain!r}")
+        if not abs(resumed - resumed_plain) <= MESH_LOSS_TOL:
+            raise AssertionError(f"phase 10a resume: {resumed} vs "
+                                 f"{resumed_plain}")
+        del restored
+        torch.cuda.empty_cache()
+        rec = dict(phase="mesh_train", argv=MESH_ARGS, backend=backend,
+                   mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                   mesh_losses=mesh_losses, plain_losses=plain_losses,
+                   loss_diffs=diffs, loss_tol=MESH_LOSS_TOL,
+                   mesh_step_s=step_s, save_s=save_s, load_s=load_s,
+                   num_stripes=stripes, files_equal=True,
+                   save_launches=save_launches["gf256_matmul_bytes"],
+                   load_launches=load_launches["gf256_matmul_bytes"],
+                   stripes_repaired=report.stripes_repaired,
+                   resume_loss=dict(mesh=resumed, plain=resumed_plain),
+                   launches={"saves": save_launches, "load": load_launches},
+                   phase_s=time.perf_counter() - start)
+        print(json.dumps(rec))
+        records.append(rec)
+        return rec
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def dryrun_cmd(arch: str, shape: str, mesh: str, out: str,
+               device: str) -> list[str]:
+    """The command line of one dry-run cell (its own process: a fresh
+    fake world)."""
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", mesh, "--out", out,
+            "--device", device, "--force"]
+
+
+def dryrun_phase(records: list, device: str = "cuda") -> dict:
+    """Phase 10b: the cells of `DRYRUN_CELLS`, each through
+    `python -m repro_torch.launch.dryrun` in its own process, all at
+    once (host work only: fake tensors); fails if a cell fails or
+    allocates on the card. Returns its record."""
+    start = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs, cells = [], []
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            log = open(Path(out) / f"{arch}__{shape}__{mesh}.log", "w")
+            procs.append((arch, shape, mesh, time.perf_counter(), log,
+                          subprocess.Popen(dryrun_cmd(arch, shape, mesh, out,
+                                                      device),
+                                           cwd=root, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT)))
+        ended = {}                  # each process's own seconds
+        deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+        while len(ended) < len(procs):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 10b: cells still running after "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+            for i, (*_, tic, _, proc) in enumerate(procs):
+                if i not in ended and proc.poll() is not None:
+                    ended[i] = time.perf_counter() - tic
+            time.sleep(0.5)
+        for i, (arch, shape, mesh, tic, log, proc) in enumerate(procs):
+            rc, seconds = proc.returncode, ended[i]
+            log.close()
+            if rc != 0:
+                tail = Path(log.name).read_text()[-3000:]
+                raise AssertionError(f"phase 10b: {arch} {shape} {mesh} "
+                                     f"exited {rc}: {tail}")
+            r = json.loads((Path(out) / f"{arch}__{shape}__{mesh}.json")
+                           .read_text())
+            h = r["hlo_analysis"]
+            if not (r["ok"] and h["flops_per_device"] > 0
+                    and r["chips"] == (512 if mesh == "multi" else 256)
+                    and r["device_allocated_bytes"] in (0, None)):
+                raise AssertionError(f"phase 10b: {r}")
+            cell = dict(arch=arch, shape=shape, mesh=mesh, chips=r["chips"],
+                        seconds=seconds, step_run_s=r["compile_s"],
+                        per_device_bytes=r["per_device_bytes"],
+                        fits=r["fits"], memory=r["memory_analysis"],
+                        device_allocated_bytes=r["device_allocated_bytes"],
+                        flops_per_device=h["flops_per_device"],
+                        bytes_per_device=h["bytes_per_device"],
+                        collective_by_kind=h["collective_by_kind"],
+                        collective_counts=h["collective_counts"],
+                        ops=h["ops"], roofline=r["roofline"],
+                        params_total=r["params_total"],
+                        model_flops_global=r["model_flops_global"],
+                        useful_compute_ratio=r["useful_compute_ratio"])
+            print(f"   dryrun {arch} {shape} {mesh}: {json.dumps(cell)}")
+            cells.append(cell)
+    finally:
+        for *_, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="dryrun", device=device, cells=cells,
+               constants=dryrun.CONSTANTS,
+               phase_s=time.perf_counter() - start)
+    records.append(rec)
+    return rec
+
+
+def mesh_phase(records: list, device: str = "cuda") -> dict:
+    """Phase 10: 10a then 10b; returns {"launches": 10a's}."""
+    train = mesh_train(records, device)
+    dryrun_phase(records, device)
+    return {"launches": train["launches"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None,
@@ -2216,13 +2501,15 @@ def main() -> None:
     train_launches = train["launches"]
     serve_launches = serve_phase(records)["launches"]["phase"]
     family_launches = family_phase(records)["launches"]
+    mesh_launches = mesh_phase(records)["launches"]
     print(json.dumps({"launches": {"serial": serial_launches,
                                    **{f"batched_b{b}": lc for b, lc in
                                       zip(BATCHES, batch_launches)},
                                    "sweep": sweep_launches,
                                    "train_checkpoint": train_launches,
                                    "serve": serve_launches,
-                                   "families": family_launches}}))
+                                   "families": family_launches,
+                                   "mesh": mesh_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
     # B=4 (a new dict: the phases' records keep their own counts); the
     # plane kernels run on no path
@@ -2243,6 +2530,7 @@ def main() -> None:
                    for k, v in train_launches.items() if k != "run"}},
             launches_serve=serve_launches[kname],
             launches_families=family_launches[kname],
+            launches_mesh={k: v[kname] for k, v in mesh_launches.items()},
             max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],

@@ -16,7 +16,10 @@ returns: one concatenation of the leaves, so neither an in-place update
 nor the next train step reaches a save still running on the background
 thread. The thread lays the stripes out, encodes them, copies the blocks
 to the host once and writes the domain files; commits are atomic via a
-directory rename.
+directory rename. A state on a mesh (DTensor leaves) is saved by its
+leaves' whole values, so its files are those of the same values held as
+plain tensors; `load` returns plain tensors on the template's devices,
+which `ft.elastic.reshard_state` places on a (new) mesh.
 
 Losing up to n-k domains is repaired in place: a corrupt or missing
 domain file counts as lost, every stripe that lost a data block is
@@ -36,6 +39,7 @@ import zlib
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel
@@ -83,6 +87,13 @@ def _block_order(stripes) -> dict[int, list[tuple[int, int]]]:
     return per_domain
 
 
+def _whole(leaf: torch.Tensor) -> torch.Tensor:
+    """A leaf's whole value: a DTensor (a state on a mesh) is gathered
+    from its shards, as the reference's `np.asarray` gathers a sharded
+    array."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 class ECCheckpointer:
     """Saves and repairs EC checkpoints. Encoding and repair run on
     `device` (`None` = the card; raises without one)."""
@@ -111,7 +122,7 @@ class ECCheckpointer:
         """The state's leaves as one uint8 blob on `self.device` (a copy:
         the snapshot), with the manifest's shapes, dtypes and treedef."""
         pairs = tree.items(state)
-        leaves = [leaf.detach() for _, leaf in pairs]
+        leaves = [_whole(leaf).detach() for _, leaf in pairs]
         meta = {
             "shapes": [list(leaf.shape) for leaf in leaves],
             "dtypes": [DTYPE_NAMES[leaf.dtype] for leaf in leaves],

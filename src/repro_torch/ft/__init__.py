@@ -1,9 +1,9 @@
-"""Fault tolerance: failure injection and straggler detection. The elastic
-re-mesh (`ft/elastic.py` in the JAX package) needs a device mesh and is
-not ported yet."""
+"""Fault tolerance: failure injection, straggler detection, elastic
+re-mesh."""
 
 from repro_torch.ft.failures import (  # noqa: F401
     FailureEvent,
     FailureInjector,
     StragglerMonitor,
 )
+from repro_torch.ft.elastic import elastic_data_size, shrink_mesh  # noqa: F401

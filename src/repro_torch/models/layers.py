@@ -2,8 +2,8 @@
 int8-KV decode path), SwiGLU/GeGLU MLP, GShard-style MoE, embeddings.
 
 Params are nested dicts of tensors with the JAX package's names and
-shapes; each init_* has a matching logical_* tree of axis names, in the
-off-mesh layout (the others need a device mesh, ROADMAP item 17h). Math
+shapes; each init_* has a matching logical_* tree of axis names (see
+models/sharding.py) from which a mesh's DTensor placements are built. Math
 runs in fp32 where the reference's does (norms, RoPE, attention scores,
 the MoE router, the unembedding's accumulation) and in the params' dtype
 elsewhere.
@@ -15,6 +15,13 @@ positions, -1 for invalid slots, a sliding window, fp32 activations)
 goes through `chunked_attention`, an online softmax over KV chunks in
 plain torch that autograd differentiates. Both round q, k and v to bf16
 before the products, as the reference does.
+
+On a mesh (DTensor activations) attention, the attention projections,
+2-D products, the embedding and the MoE experts run shard by shard in
+`local_map` regions with their collectives written out (`mesh_attention`,
+`_mesh_project_in` / `_mesh_project_out`, `sharding.mesh_matmul`,
+`_mesh_embed`, `_mesh_experts`); norms, RoPE and the routing stay
+DTensor ops.
 """
 from __future__ import annotations
 
@@ -22,9 +29,14 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 
-from repro_torch.models.sharding import NO_MESH, MeshRules
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.models.sharding import (NO_MESH, AllReduce, MeshRules,
+                                         local_apply, local_region,
+                                         mesh_matmul)
 
 
 # --------------------------------------------------------------------- utils
@@ -84,9 +96,9 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
         raise ValueError(f"M-RoPE sections {sections} do not sum to "
                          f"hd/2 = {hd // 2}")
     freqs = rope_freqs(hd, theta, x.device)                # (hd/2,)
-    sec_ids = torch.repeat_interleave(
-        torch.arange(len(sections), device=pos3.device),
-        torch.tensor(sections, device=pos3.device))        # (hd/2,) in {0,1,2}
+    sec_ids = torch.tensor([i for i, n in enumerate(sections)
+                            for _ in range(n)],
+                           device=pos3.device)             # (hd/2,) in {0,1,2}
     pos_sel = pos3[sec_ids]                                # (hd/2, B, T)
     angles = pos_sel.permute(1, 2, 0).float() * freqs      # (B, T, hd/2)
     return _rotate(x, angles)
@@ -124,6 +136,8 @@ def chunked_attention(
     rules: MeshRules = NO_MESH,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
+    head_dim: int | None = None,
+    score_reduce=None,
 ) -> torch.Tensor:
     """Attention by an online softmax over KV chunks, in the reference's
     arithmetic: q, k, v and the probabilities rounded to bf16, scores and
@@ -135,7 +149,12 @@ def chunked_attention(
     decode-path feature (Tq = 1). Each chunk is dequantized on its own, as
     a bf16 product of the int8 values and the scales, so the bf16 copy is
     chunk-sized. The last chunk may be short: the reference pads it with
-    invalid slots, which add nothing."""
+    invalid slots, which add nothing.
+
+    `head_dim` (the scale's 1/sqrt(head_dim); q's last dim by default) and
+    `score_reduce` (applied to each chunk's scores) serve a rank that
+    holds a slice of head_dim: its scores are partial sums, completed by
+    an all-reduce."""
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("an int8 KV cache needs both k_scale and v_scale")
@@ -147,7 +166,7 @@ def chunked_attention(
     s, kv_heads = k.shape[1], k.shape[2]
     g = h // kv_heads
     chunk = min(chunk, s)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(head_dim or hd)
     qg = _bf16(q.reshape(b, tq, kv_heads, g, hd).permute(0, 2, 3, 1, 4))
     acc = q.new_zeros((b, kv_heads, g, tq, hd), dtype=torch.float32)
     m = q.new_full((b, kv_heads, g, tq), -math.inf, dtype=torch.float32)
@@ -161,7 +180,10 @@ def chunked_attention(
                 torch.bfloat16)
         k_i, v_i = _bf16(k_i), _bf16(v_i)
         valid = _mask_chunk(kv_pos[:, c:c + chunk], q_pos, causal, window)
-        sc = torch.einsum("bkgth,bckh->bkgtc", qg, k_i) * scale
+        sc = torch.einsum("bkgth,bckh->bkgtc", qg, k_i)
+        if score_reduce is not None:
+            sc = score_reduce(sc)
+        sc = sc * scale
         sc = torch.where(valid, sc, -math.inf)
         with torch.no_grad():
             m_new = torch.maximum(m, sc.amax(dim=-1))
@@ -194,6 +216,76 @@ def causal_self_attention(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2)
 
 
+# The logical axes of q (and of k, v outside the "seq" layout) by layout.
+QSPEC = {"heads": ("batch", None, "tp", None),
+         "heads_repkv": ("batch", None, "tp", None),
+         "hd": ("batch", None, None, "tp"),
+         "seq": ("batch", "seq", None, None),
+         "none": ("batch", None, None, None)}
+
+
+def mesh_attention(rules: MeshRules, mode: str, q, k, v, *, q_pos, kv_pos,
+                   causal: bool = True, window: int = 0, chunk: int = 1024,
+                   k_scale=None, v_scale=None, fused: bool = False):
+    """Attention on a mesh: each rank attends with its own shards, in a
+    `local_map` region (the online softmax's chunk slices have no DTensor
+    sharding rule, and the fused kernel none on the CPU).
+
+    The layouts (`attn_shard_mode`): "heads" / "heads_repkv" shard q, k, v
+    on heads (k, v already repeated to q's heads for "heads_repkv"), so
+    each rank's heads are a whole attention; "seq" shards q and its
+    positions on T with k, v whole, exact with explicit positions (the
+    fused causal kernel, which assumes q starts at 0, is not used);
+    "hd" shards head_dim, so each chunk's scores are partial sums that
+    an all-reduce over the tensor axis completes. `fused` takes
+    `causal_self_attention` for the heads layouts."""
+    if mode == "none":
+        raise NotImplementedError(
+            "decode on a mesh whose tensor axis divides neither the KV "
+            "heads nor head_dim (a sequence-sharded cache) is not supported")
+    qspec = QSPEC[mode]
+    kvspec = ("batch", None, None, None) if mode == "seq" else qspec
+    args = [(q, qspec), (k, kvspec), (v, kvspec),
+            (q_pos, ("batch", "seq") if mode == "seq" else ("batch", None)),
+            (kv_pos, ("batch", None))]
+    if k_scale is not None:
+        args += [(k_scale, kvspec[:3]), (v_scale, kvspec[:3])]
+    head_dim = q.shape[-1]
+    reduce = None
+    if mode == "hd" and rules.spec(qspec, tuple(q.shape))[3] is not None:
+        group = rules.dmesh.get_group(rules.tensor)
+
+        def reduce(sc):
+            return funcol.wait_tensor(funcol.all_reduce(sc, "sum", group))
+
+    def local(q, k, v, q_pos, kv_pos, *scales):
+        if fused and mode != "seq":
+            return causal_self_attention(q, k, v)
+        ks, vs = scales if scales else (None, None)
+        return chunked_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                                 causal=causal, window=window, chunk=chunk,
+                                 k_scale=ks, v_scale=vs, head_dim=head_dim,
+                                 score_reduce=reduce)
+
+    return local_region(rules, local, args, 0)
+
+
+def attend(rules: MeshRules, mode: str, q, k, v, *, q_pos, kv_pos,
+           causal: bool = True, chunk: int = 1024, fused: bool = False):
+    """Attention by the route the arguments allow: on a mesh
+    `mesh_attention` in layout `mode`; off-mesh the fused causal kernel
+    when `fused` (q, k, v at positions 0..T-1, bf16), else
+    `chunked_attention`."""
+    if rules.mesh is not None:
+        return mesh_attention(rules, mode, q, k, v, q_pos=q_pos,
+                              kv_pos=kv_pos, causal=causal, chunk=chunk,
+                              fused=fused)
+    if fused:
+        return causal_self_attention(q, k, v)
+    return chunked_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
+                             causal=causal, chunk=chunk, rules=rules)
+
+
 # --------------------------------------------------------------- GQA module
 def init_attention(key, cfg, dtype) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -211,32 +303,69 @@ def init_attention(key, cfg, dtype) -> dict:
 
 
 def attn_shard_mode(cfg, rules: MeshRules, *, decode: bool = False) -> str:
-    """The attention weights' tensor-shard layout: "none" off-mesh, the
-    only case here (`MeshRules` takes no mesh)."""
-    return "none"
+    """Tensor-shard layout when heads don't divide the tensor axis
+    (smollm 15H, gemma 8H, qwen2 12H on a 16-way axis):
 
-
-def _mesh_layout(what: str):
-    raise NotImplementedError(f"the {what} layout needs a device mesh "
-                              "(ROADMAP item 17h)")
+    * full-sequence steps (train/prefill) -> "seq": whole-layer sequence
+      parallelism (activations T-sharded, layer weights fsdp-only).
+    * decode (Tq=1) -> "hd" when head_dim divides: scores are tiny, and
+      hd-sharding splits the KV cache + weight reads.
+    * "heads_repkv" (grok-1: 48 Q heads shard 16 ways, its 8 KV heads do
+      not): KV weights replicate over the tensor axis and the KV heads
+      are repeated to MHA per shard.
+    * "none" off-mesh.
+    """
+    if rules.mesh is None:
+        return "none"
+    ts = rules.axis_sizes[rules.tensor]
+    if cfg.num_heads % ts == 0 and cfg.num_kv_heads % ts == 0:
+        return "heads"
+    if cfg.num_heads % ts == 0 and not decode:
+        return "heads_repkv"
+    if decode:
+        return "hd" if cfg.hd % ts == 0 else "none"
+    return "seq"
 
 
 def logical_attention(cfg, mode: str = "heads") -> dict:
-    """Heads on the tensor axis (the "heads" and "none" modes); the
-    mesh-only "heads_repkv" and "hd" layouts raise."""
-    if mode not in ("heads", "none"):
-        _mesh_layout(f"{mode!r} attention")
-    t = {"wq": ("d", "tp", None), "wk": ("d", "tp", None),
-         "wv": ("d", "tp", None), "wo": ("tp", None, "d")}
+    if mode == "heads_repkv":
+        t = {
+            "wq": ("d", "tp", None),
+            "wk": ("d", None, None),
+            "wv": ("d", None, None),
+            "wo": ("tp", None, "d"),
+        }
+        if cfg.qkv_bias:
+            t |= {"bq": ("tp", None), "bk": (None, None), "bv": (None, None)}
+        return t
+    if mode == "hd":
+        t = {
+            "wq": ("d", None, "tp"),
+            "wk": ("d", None, "tp"),
+            "wv": ("d", None, "tp"),
+            "wo": (None, "tp", "d"),
+        }
+        bias = {"bq": (None, "tp"), "bk": (None, "tp"), "bv": (None, "tp")}
+    else:
+        t = {
+            "wq": ("d", "tp", None),
+            "wk": ("d", "tp", None),
+            "wv": ("d", "tp", None),
+            "wo": ("tp", None, "d"),
+        }
+        bias = {"bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
     if cfg.qkv_bias:
-        t |= {"bq": ("tp", None), "bk": ("tp", None), "bv": ("tp", None)}
+        t |= bias
     return t
 
 
 def attention_qkv(params, x, cfg):
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    if isinstance(x, DTensor):
+        q, k, v = (_mesh_project_in(x, params[w]) for w in ("wq", "wk", "wv"))
+    else:
+        q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+        k = torch.einsum("btd,dhk->bthk", x, params["wk"])
+        v = torch.einsum("btd,dhk->bthk", x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -245,7 +374,53 @@ def attention_qkv(params, x, cfg):
 
 
 def attention_out(params, o):
+    if isinstance(o, DTensor):
+        return _mesh_project_out(o, params["wo"])
     return torch.einsum("bthk,hkd->btd", o, params["wo"])
+
+
+# On a mesh the projections run shard by shard (`local_apply`): DTensor's
+# einsum flattens (heads, head_dim) into one dim and may shard it where
+# heads do not divide the axis (smollm's 15 heads on 16 ranks), which it
+# then cannot unflatten. The weight's FSDP axes are gathered first, as
+# FSDP gathers them.
+def _mesh_project_in(x, w):
+    """(B, T, d) x (d, H, hd) -> (B, T, H, hd): x keeps its batch and
+    sequence shards, w its head or head_dim shard where x leaves that
+    mesh dim free."""
+    xp = [Replicate() if not (p.is_shard(0) or p.is_shard(1)) else p
+          for p in x.placements]
+    wp = [p if (p.is_shard(1) or p.is_shard(2)) and not xp[i].is_shard()
+          else Replicate() for i, p in enumerate(w.placements)]
+    out = [xp[i] if xp[i].is_shard() else
+           Shard(wp[i].dim + 1) if wp[i].is_shard() else Replicate()
+           for i in range(len(xp))]
+    return local_apply(lambda a, b: torch.einsum("btd,dhk->bthk", a, b),
+                       x.device_mesh, (x, w), (xp, wp), out)
+
+
+def _mesh_project_out(o, w):
+    """(B, T, H, hd) x (H, hd, d) -> (B, T, d): w is cut as o's heads or
+    head_dim are, and the partial sums over those are all-reduced."""
+    mesh = o.device_mesh
+    op = [p if p.is_shard() else Replicate() for p in o.placements]
+    wp, out, groups = [], [], []
+    for i, p in enumerate(op):
+        if p.is_shard(2) or p.is_shard(3):
+            wp.append(Shard(p.dim - 2))
+            out.append(Replicate())
+            groups.append(mesh.get_group(i))
+        else:
+            wp.append(Replicate())
+            out.append(p)
+
+    def project(a, b):
+        y = torch.einsum("bthk,hkd->btd", a, b)
+        for group in groups:
+            y = AllReduce.apply(y, group)
+        return y
+
+    return local_apply(project, mesh, (o, w), (op, wp), out)
 
 
 # ----------------------------------------------------------------------- MLP
@@ -262,7 +437,16 @@ def logical_mlp(cfg) -> dict:
     return {"wi_gate": ("d", "tp"), "wi_up": ("d", "tp"), "wo": ("tp", "d")}
 
 
+def matmul(x, w):
+    """`x @ w`; on a mesh shard by shard (`sharding.mesh_matmul`)."""
+    return mesh_matmul(x, w) if isinstance(x, DTensor) else x @ w
+
+
 def mlp(params, x, cfg):
+    if isinstance(x, DTensor):
+        gate = mesh_matmul(x, params["wi_gate"])
+        up = mesh_matmul(x, params["wi_up"])
+        return mesh_matmul(act_fn(cfg.act)(gate) * up, params["wo"])
     gate = torch.einsum("btd,df->btf", x, params["wi_gate"])
     up = torch.einsum("btd,df->btf", x, params["wi_up"])
     return torch.einsum("btf,fd->btd", act_fn(cfg.act)(gate) * up,
@@ -281,10 +465,11 @@ def init_moe(key, cfg, dtype) -> dict:
 
 
 def logical_moe(cfg, ep: bool) -> dict:
-    """Tensor-parallel inside each expert; expert parallelism (`ep`) is a
-    mesh layout and raises."""
+    """ep=True: experts sharded over the tensor axis (expert parallelism);
+    else tensor-parallel inside each expert (grok-1: 8 experts < 16-way)."""
     if ep:
-        _mesh_layout("expert-parallel MoE")
+        return {"router": ("d", None), "wi_gate": ("tp", "d", None),
+                "wi_up": ("tp", "d", None), "wo": ("tp", None, "d")}
     return {"router": ("d", None), "wi_gate": (None, "d", "tp"),
             "wi_up": (None, "d", "tp"), "wo": (None, "tp", "d")}
 
@@ -345,19 +530,63 @@ def moe(params, x, cfg, rules: MeshRules = NO_MESH,
     xb = x.to(torch.bfloat16)
     expert_in = torch.einsum("btec,btd->becd", dispatch.to(torch.bfloat16),
                              xb)                                   # (b,e,cap,d)
-    gate_h = _einsum("becd,edf->becf", expert_in, params["wi_gate"])
-    up_h = _einsum("becd,edf->becf", expert_in, params["wi_up"])
-    h = act_fn(cfg.act)(gate_h) * up_h
-    expert_out = _einsum("becf,efd->becd", h, params["wo"])
-    out = _einsum("btec,becd->btd", combine.to(torch.bfloat16),
-                  expert_out).to(x.dtype)
-    out = out.reshape(b_in, t_in, d)
+    if rules.mesh is None:
+        expert_out = _experts(expert_in, params["wi_gate"], params["wi_up"],
+                              params["wo"], cfg.act)
+        out = _einsum("btec,becd->btd", combine.to(torch.bfloat16),
+                      expert_out)
+    else:
+        out = _mesh_experts(params, expert_in, combine.to(torch.bfloat16),
+                            cfg, rules)
+    out = out.to(x.dtype).reshape(b_in, t_in, d)
 
     # switch-style load balance aux: E * sum(frac_tokens_e * frac_prob_e)
     frac_tokens = onehot[:, :, 0, :].mean(dim=(0, 1))              # top-1 share
     frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_probs)
     return out, MoEAux(load_balance_loss=aux)
+
+
+def _experts(x, wi_gate, wi_up, wo, act: str):
+    """(b, e, cap, d) expert inputs through each expert's gated MLP."""
+    gate_h = _einsum("becd,edf->becf", x, wi_gate)
+    up_h = _einsum("becd,edf->becf", x, wi_up)
+    h = act_fn(act)(gate_h) * up_h
+    return _einsum("becf,efd->becd", h, wo)
+
+
+def _mesh_experts(params, expert_in, combine, cfg, rules: MeshRules):
+    """`_experts` and the combine on a mesh, each rank on its own shards
+    in a `local_map` region (DTensor's einsum rules flatten the sharded
+    expert axis into a strided layout they cannot then contract). The
+    weights' FSDP axes are gathered first (the all-gather FSDP does).
+    With experts on the tensor axis (expert parallelism) each rank
+    combines its own experts' outputs, and with d_ff there (grok-1's 8
+    experts on a 16-way axis) each rank's experts give partial sums:
+    either way the (b, t, d) output is all-reduced over the tensor axis.
+    """
+    ep = cfg.moe.num_experts % rules.axis_sizes[rules.tensor] == 0
+    logical = logical_moe(cfg, ep)
+    expert_axes = ("batch", "tp", None, None)       # the reference's pins
+    # the weights with their FSDP ("d") axes gathered, as FSDP gathers them
+    args = [(expert_in, expert_axes),
+            (combine, ("batch", None, "tp", None))] + [
+        (params[k], tuple(None if a == "d" else a for a in logical[k]))
+        for k in ("wi_gate", "wi_up", "wo")]
+    group = rules.dmesh.get_group(rules.tensor)
+    partial = (rules.spec(expert_axes, tuple(expert_in.shape))[1]
+               or rules.spec(args[4][1], tuple(params["wo"].shape))[1])
+
+    def local(x, comb, wi_gate, wi_up, wo):
+        out = _einsum("btec,becd->btd", comb,
+                      _experts(x, wi_gate, wi_up, wo, cfg.act))
+        return AllReduce.apply(out, group) if partial else out
+
+    tensors = [rules.constrain(t, lg) for t, lg in args]
+    placements = [tuple(t.placements) for t in tensors]
+    # (b, t, d): sharded as combine's batch, whole on the tensor axis
+    out = [p if p.is_shard(0) else Replicate() for p in placements[1]]
+    return local_apply(local, rules.dmesh, tensors, placements, out)
 
 
 # ----------------------------------------------------------------- embedding
@@ -370,15 +599,48 @@ def logical_embed(cfg) -> dict:
     return {"table": ("tp", "d")}
 
 
-def embed(params, tokens):
+def embed(params, tokens, rules: MeshRules = NO_MESH):
+    if rules.mesh is not None:
+        return _mesh_embed(params["table"], tokens, rules)
     return params["table"][tokens]
+
+
+def _mesh_embed(table, tokens, rules: MeshRules):
+    """The lookup on a mesh, shard by shard (DTensor's rule for the
+    lookup's backward, an accumulating `index_put`, is not on every
+    torch version): each rank looks its batch rows up in its slice of
+    the vocabulary (the table's FSDP shards gathered), rows outside the
+    slice are 0, and the sum over the tensor axis completes them
+    (Megatron's vocab-parallel embedding)."""
+    mesh = rules.dmesh
+    tdim = mesh.mesh_dim_names.index(rules.tensor)
+    tokens = rules.constrain(tokens, ("batch",) + (None,) * (tokens.ndim - 1))
+    tok_p = tuple(tokens.placements)
+    tab_p = tuple(p if i == tdim and p.is_shard(0) else Replicate()
+                  for i, p in enumerate(table.placements))
+    vocab_split = tab_p[tdim].is_shard(0)
+    group = mesh.get_group(tdim)
+    rank = mesh.get_local_rank(tdim)
+
+    def lookup(tab, tok):
+        if not vocab_split:
+            return tab[tok]
+        lo = rank * tab.shape[0]
+        local = tok - lo
+        inside = (local >= 0) & (local < tab.shape[0])
+        rows = tab[torch.where(inside, local, 0)]
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return AllReduce.apply(rows, group)
+
+    out = [p if p.is_shard(0) else Replicate() for p in tok_p]
+    return local_apply(lookup, mesh, (table, tokens), (tab_p, tok_p), out)
 
 
 def unembed(params, x):
     """(B, T, d) -> (B, T, V) fp32 logits: both operands rounded to bf16,
     the products summed in fp32 (the reference's bf16 einsum with an fp32
     result), not a bf16 matmul, whose output would be rounded to bf16."""
-    return _bf16(x) @ _bf16(params["table"]).T
+    return matmul(_bf16(x), _bf16(params["table"]).T)
 
 
 # ------------------------------------------------------------ int8 KV cache

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import NO_MESH, MeshRules
+from repro_torch.models.sharding import NO_MESH, MeshRules, local_region
 
 CONV_K = 4
 MAMBA_HEAD_DIM = 64
@@ -147,18 +147,30 @@ def block(lp, x, cfg, state, *, chunk: int, rules: MeshRules = NO_MESH):
     bsz, t, d = x.shape
     d_in, nheads, n, conv_dim = dims(cfg)
     h = L.rms_norm(x, lp["ln"], cfg.norm_eps)
-    zxbcdt = h @ lp["w_in"]
+    zxbcdt = L.matmul(h, lp["w_in"])
     z, xbc, dt = _split(zxbcdt, cfg)
     xbc, conv_new = _conv(xbc, lp["conv_w"], lp["conv_b"], state["conv"])
     xin = xbc[..., :d_in].float().reshape(bsz, t, nheads, MAMBA_HEAD_DIM)
     b_t = xbc[..., d_in: d_in + n].float()
     c_t = xbc[..., d_in + n:].float()
-    y, ssm_new = ssd_chunked(xin, b_t, c_t, dt.float(), lp, state["ssm"],
-                             chunk)
+    if rules.mesh is None:
+        y, ssm_new = ssd_chunked(xin, b_t, c_t, dt.float(), lp, state["ssm"],
+                                 chunk)
+    else:
+        # the chunk loop has no DTensor sharding rule: each rank scans its
+        # own batch rows and heads (the scan is independent across both)
+        heads = {k: lp[k] for k in ("A_log", "dt_bias")}
+        y, ssm_new = local_region(
+            rules, lambda x, bt, ct, dt, al, db, s: ssd_chunked(
+                x, bt, ct, dt, {"A_log": al, "dt_bias": db}, s, chunk),
+            [(xin, ("batch", None, "tp", None)), (b_t, ("batch", None, None)),
+             (c_t, ("batch", None, None)), (dt.float(), ("batch", None, "tp")),
+             (heads["A_log"], ("tp",)), (heads["dt_bias"], ("tp",)),
+             (state["ssm"], ("batch", "tp", None, None))], (0, 6))
     y = y + lp["D"][None, None, :, None] * xin
     y = y.reshape(bsz, t, d_in).to(x.dtype) * F.silu(z)
     y = L.rms_norm(y, lp["out_ln"], cfg.norm_eps)
-    out = y @ lp["w_out"]
+    out = L.matmul(y, lp["w_out"])
     new_state = {"ssm": ssm_new, "conv": conv_new.to(state["conv"].dtype)}
     return out, new_state
 
@@ -170,12 +182,15 @@ def init_state(cfg: ArchConfig, batch: int, num_layers: int,
     on `device` (`None` = the card; raises without one)."""
     d_in, nheads, n, conv_dim = dims(cfg)
     dev = resolve_device(device)
-    return {
+    s = {
         "ssm": torch.zeros((num_layers, batch, nheads, MAMBA_HEAD_DIM, n),
                            dtype=torch.float32, device=dev),
         "conv": torch.zeros((num_layers, batch, CONV_K - 1, conv_dim),
                             dtype=dtype, device=dev),
     }
+    s["ssm"] = rules.constrain(s["ssm"], (None, "batch", "tp", None, None))
+    s["conv"] = rules.constrain(s["conv"], (None, "batch", None, "tp"))
+    return s
 
 
 def state_logical(cfg: ArchConfig) -> dict:

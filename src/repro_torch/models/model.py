@@ -1,6 +1,7 @@
 """Uniform model API over all ten architectures: params and their logical
-trees, the LM loss and the serve API (`init_cache`, `cache_logical`,
-`decode_step`).
+trees, the LM loss, the serve API (`init_cache`, `cache_logical`,
+`decode_step`) and the dry run's input stand-ins (`input_specs`,
+`batch_logical`).
 
 Families: the transformer (dense, MoE, sliding window, M-RoPE VLM),
 whisper (encoder-decoder), rwkv6 (attention-free RNN) and zamba2 (Mamba2
@@ -11,8 +12,9 @@ where the reference would hand back its bf16 state.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
 from repro_torch.models.sharding import NO_MESH, MeshRules
 
@@ -42,8 +44,13 @@ def logical_params(cfg: ArchConfig, rules: MeshRules, *, decode: bool = False):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    if isinstance(gold, DTensor):
+        # a gather over vocab-sharded logits is a masked partial sum:
+        # complete it before the index (DTensor's mask does not follow it)
+        gold = gold.redistribute(gold.device_mesh, [
+            Replicate() if p.is_partial() else p for p in gold.placements])
+    return torch.mean(logz - gold[..., 0])
 
 
 def train_loss(params, cfg: ArchConfig, batch: dict, *,
@@ -121,10 +128,67 @@ def decode_step(params, cfg: ArchConfig, token, cache, *, rules=NO_MESH,
     if cfg.is_encoder_decoder:
         raise ValueError("whisper decodes through "
                          "serve.make_whisper_decode_step")
-    if mod is rwkv6:
-        return mod.decode_step(params, cfg, token, cache, rules=rules)
-    if mod is zamba2:
+    with rules.context():
+        if mod is rwkv6:
+            return mod.decode_step(params, cfg, token, cache, rules=rules)
+        if mod is zamba2:
+            return mod.decode_step(params, cfg, token, cache, rules=rules,
+                                   attn_chunk=chunk)
         return mod.decode_step(params, cfg, token, cache, rules=rules,
-                               attn_chunk=chunk)
-    return mod.decode_step(params, cfg, token, cache, rules=rules,
-                           chunk=chunk, pos3=pos3)
+                               chunk=chunk, pos3=pos3)
+
+
+# -------------------------------------------------------------- input specs
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, include_labels=True,
+                device="meta") -> dict:
+    """Empty stand-ins for every model input of the given shape cell (the
+    reference's `ShapeDtypeStruct`s): tensors on the `meta` device by
+    default, which hold no memory; under a `FakeTensorMode`, fake tensors
+    on `device`. Frontends are stubs: whisper gets frame embeddings,
+    qwen2-vl patch embeddings."""
+    def sd(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    b, t = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        if cfg.is_encoder_decoder:
+            td = min(cfg.max_decoder_len, t)
+            specs = {"frames": sd((b, t, cfg.d_model), torch.bfloat16),
+                     "tokens": sd((b, td), torch.int32)}
+            if include_labels and shape.kind == "train":
+                specs["labels"] = sd((b, td), torch.int32)
+            return specs
+        specs = {"tokens": sd((b, t), torch.int32)}
+        if cfg.mrope:
+            specs["pos3"] = sd((3, b, t), torch.int32)
+            specs["vision_embeds"] = sd((b, min(256, t), cfg.d_model),
+                                        torch.bfloat16)
+        if include_labels and shape.kind == "train":
+            specs["labels"] = sd((b, t), torch.int32)
+        return specs
+    # decode: one new token against a seq_len cache
+    specs = {"token": sd((b,), torch.int32)}
+    if cfg.mrope:
+        specs["pos3"] = sd((3, b, 1), torch.int32)
+    return specs
+
+
+def batch_logical(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Logical sharding of the input batch."""
+    if shape.kind in ("train", "prefill"):
+        if cfg.is_encoder_decoder:
+            out = {"frames": ("batch", None, None), "tokens": ("batch", None)}
+            if shape.kind == "train":
+                out["labels"] = ("batch", None)
+            return out
+        out = {"tokens": ("batch", None)}
+        if cfg.mrope:
+            out["pos3"] = (None, "batch", None)
+            out["vision_embeds"] = ("batch", None, None)
+        if shape.kind == "train":
+            out["labels"] = ("batch", None)
+        return out
+    out = {"token": ("batch",)}
+    if cfg.mrope:
+        out["pos3"] = (None, "batch", None)
+    return out

@@ -37,7 +37,8 @@ from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import NO_MESH, MeshRules, stack_logical
+from repro_torch.models.sharding import (MeshRules, NO_MESH, assign,
+                                         local_region, serving, stack_logical)
 
 LOG_CLAMP = 40.0  # max total |log-decay| per chunk (exp(40) ~ 2e17, f32-safe)
 
@@ -124,8 +125,8 @@ def logical_tree(cfg: ArchConfig, rules: MeshRules) -> dict:
 # ------------------------------------------------------------------ wkv core
 def _decays(lp, xw, cfg):
     """log w (B, T, d) from the decay LoRA, fp32, clamped."""
-    lora = xw.float() @ lp["wA"].float()
-    dec = lp["w0"] + torch.tanh(lora) @ lp["wB"].float()
+    lora = L.matmul(xw.float(), lp["wA"].float())
+    dec = lp["w0"] + L.matmul(torch.tanh(lora), lp["wB"].float())
     logw = -torch.exp(dec)                     # < 0
     return torch.clamp(logw, -LOG_CLAMP / 2, -1e-6)
 
@@ -184,32 +185,44 @@ def _time_mix(lp, x, cfg, state, last_x, *, chunk, rules):
     h, hd = cfg.num_heads, cfg.hd
     prev = _token_shift(x, last_x)
     mixed = {n: x + (prev - x) * lp["mix"][f"mu_{n}"] for n in _mix_names()}
-    r = (mixed["r"] @ lp["wr"]).float()
-    k = (mixed["k"] @ lp["wk"]).float()
-    v = (mixed["v"] @ lp["wv"]).float()
-    g = mixed["g"] @ lp["wg"]
+    r = L.matmul(mixed["r"], lp["wr"]).float()
+    k = L.matmul(mixed["k"], lp["wk"]).float()
+    v = L.matmul(mixed["v"], lp["wv"]).float()
+    g = L.matmul(mixed["g"], lp["wg"])
     logw = _decays(lp, mixed["w"], cfg)
 
     def hsplit(z):
         return z.reshape(b, t, h, hd)
 
     u = lp["u"].reshape(h, hd)
-    out, state = wkv_chunked(hsplit(r), hsplit(k), hsplit(v), hsplit(logw),
-                             u, state, chunk=chunk)
+    if rules.mesh is None:
+        out, state = wkv_chunked(hsplit(r), hsplit(k), hsplit(v),
+                                 hsplit(logw), u, state, chunk=chunk)
+    else:
+        # the chunk loop has no DTensor sharding rule: each rank scans its
+        # own batch rows and heads (the WKV is independent across both)
+        per_head = ("batch", None, "tp", None)
+        out, state = local_region(
+            rules, lambda r, k, v, w, u, s: wkv_chunked(r, k, v, w, u, s,
+                                                        chunk=chunk),
+            [(hsplit(r), per_head), (hsplit(k), per_head),
+             (hsplit(v), per_head), (hsplit(logw), per_head),
+             (u, ("tp", None)), (state, ("batch", "tp", None, None))],
+            (0, 5))
     # per-head normalization + gate
     out = L.rms_norm(out.to(_dtype(cfg)), lp["head_ln"][None, None],
                      cfg.norm_eps)
     out = out.reshape(b, t, d) * F.silu(g)
-    return out @ lp["wo"], state, x[:, -1]
+    return L.matmul(out, lp["wo"]), state, x[:, -1]
 
 
 def _channel_mix(lp, x, cfg, last_x):
     prev = _token_shift(x, last_x)
     xk = x + (prev - x) * lp["cm_mu_k"]
     xr = x + (prev - x) * lp["cm_mu_r"]
-    kk = torch.square(F.relu(xk @ lp["cm_wk"]))
-    vv = kk @ lp["cm_wv"]
-    rr = torch.sigmoid(xr @ lp["cm_wr"])
+    kk = torch.square(F.relu(L.matmul(xk, lp["cm_wk"])))
+    vv = L.matmul(kk, lp["cm_wv"])
+    rr = torch.sigmoid(L.matmul(xr, lp["cm_wr"]))
     return rr * vv, x[:, -1]
 
 
@@ -219,8 +232,9 @@ def init_state(cfg: ArchConfig, batch: int, rules: MeshRules = NO_MESH,
     dev = resolve_device(device)
     h, hd, n = cfg.num_heads, cfg.hd, cfg.num_layers
     return {
-        "wkv": torch.zeros((n, batch, h, hd, hd), dtype=torch.float32,
-                           device=dev),
+        "wkv": rules.constrain(torch.zeros((n, batch, h, hd, hd),
+                                           dtype=torch.float32, device=dev),
+                               (None, "batch", "tp", None, None)),
         "last_tm": torch.zeros((n, batch, cfg.d_model), dtype=_dtype(cfg),
                                device=dev),
         "last_cm": torch.zeros((n, batch, cfg.d_model), dtype=_dtype(cfg),
@@ -244,7 +258,8 @@ def forward(params, cfg: ArchConfig, tokens, *, state=None, rules=NO_MESH,
     fresh state, written in place), else (logits, 0). With `remat`, each
     layer runs under `torch.utils.checkpoint`."""
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, rules)
+    x = rules.constrain(x, ("batch", None, None))
     if state is None:
         state = init_state(cfg, b, rules, device=tokens.device)
     layer_states = tree.unstack(state)
@@ -256,7 +271,8 @@ def forward(params, cfg: ArchConfig, tokens, *, state=None, rules=NO_MESH,
         x = x + tm.to(x.dtype)
         h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         cm, lcm_new = _channel_mix(lp, h2, cfg, st["last_cm"])
-        return x + cm.to(x.dtype), wkv_new, ltm_new, lcm_new
+        x = rules.constrain(x + cm.to(x.dtype), ("batch", None, None))
+        return x, wkv_new, ltm_new, lcm_new
 
     for lp, st in zip(tree.unstack(params["layers"]), layer_states):
         if remat:
@@ -265,9 +281,9 @@ def forward(params, cfg: ArchConfig, tokens, *, state=None, rules=NO_MESH,
         else:
             x, wkv, ltm, lcm = body(x, lp, st)
         if return_state:
-            st["wkv"].copy_(wkv)
-            st["last_tm"].copy_(ltm)
-            st["last_cm"].copy_(lcm)
+            assign(st["wkv"], (...,), wkv)
+            assign(st["last_tm"], (...,), ltm)
+            assign(st["last_cm"], (...,), lcm)
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -277,7 +293,7 @@ def forward(params, cfg: ArchConfig, tokens, *, state=None, rules=NO_MESH,
     return logits, x.new_zeros((), dtype=torch.float32)
 
 
-@torch.inference_mode()
+@serving
 def prefill(params, cfg, tokens, max_len=None, *, rules=NO_MESH, chunk=64):
     """Run the prompt into a fresh state (`max_len` is not used: the
     state does not grow). Returns (last logits (B, V), state)."""
@@ -286,7 +302,7 @@ def prefill(params, cfg, tokens, max_len=None, *, rules=NO_MESH, chunk=64):
     return logits[:, -1], state
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cfg, token, state, *, rules=NO_MESH):
     """The O(1) recurrence: `forward` on one token with a chunk of 1, the
     state written in place. Returns (logits (B, V), state)."""

@@ -23,8 +23,8 @@ from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import (NO_MESH, MeshRules, kv_cache_axes,
-                                         stack_logical)
+from repro_torch.models.sharding import (MeshRules, NO_MESH, assign, host_int,
+                                         kv_cache_axes, serving, stack_logical)
 
 
 def _dtype(cfg: ArchConfig):
@@ -62,14 +62,26 @@ def logical_layer(cfg: ArchConfig, ep: bool, attn_mode: str = "heads") -> dict:
 
 def logical_tree(cfg: ArchConfig, rules: MeshRules, *,
                  decode: bool = False) -> dict:
-    """The params' logical axes off-mesh (no expert parallelism; the
-    sequence-parallel and head-dim layouts need a mesh)."""
+    ep = False
+    if cfg.moe is not None and rules.mesh is not None:
+        ep = cfg.moe.num_experts % rules.axis_sizes[rules.tensor] == 0
     mode = L.attn_shard_mode(cfg, rules, decode=decode)
+    per_layer = logical_layer(cfg, ep, mode if mode != "seq" else "heads")
+    if mode == "seq":
+        # whole-layer sequence parallelism: layer weights are fsdp-only
+        # (activations carry the tensor axis on T instead)
+        per_layer = _drop_tp(per_layer)
     return {
         "embed": L.logical_embed(cfg),
-        "layers": stack_logical(logical_layer(cfg, False, mode)),
+        "layers": stack_logical(per_layer),
         "final_norm": (None,),
     }
+
+
+def _drop_tp(logical):
+    if isinstance(logical, dict):
+        return {k: _drop_tp(v) for k, v in logical.items()}
+    return tuple(None if a == "tp" else a for a in logical)
 
 
 def init_params(key, cfg: ArchConfig) -> dict:
@@ -85,17 +97,16 @@ def init_params(key, cfg: ArchConfig) -> dict:
     }
 
 
-def layer_windows(cfg: ArchConfig) -> torch.Tensor:
+def layer_windows(cfg: ArchConfig) -> list[int]:
     """Per-layer attention window (0 = full/global). gemma3: 5 local : 1
-    global — layer i is global iff (i+1) % global_every == 0."""
-    idx = torch.arange(cfg.num_layers)
-    if cfg.attn_kind == "sliding":
-        if cfg.global_every > 0:
-            is_global = (idx + 1) % cfg.global_every == 0
-            return torch.where(is_global, 0, cfg.sliding_window).to(torch.int32)
-        return torch.full((cfg.num_layers,), cfg.sliding_window,
-                          dtype=torch.int32)
-    return torch.zeros((cfg.num_layers,), dtype=torch.int32)
+    global — layer i is global iff (i+1) % global_every == 0. Python
+    ints, where the reference gives an array: the layer loop reads them
+    on the host (also when a step runs on fake tensors)."""
+    if cfg.attn_kind != "sliding":
+        return [0] * cfg.num_layers
+    ge = cfg.global_every
+    return [0 if ge > 0 and (i + 1) % ge == 0 else cfg.sliding_window
+            for i in range(cfg.num_layers)]
 
 
 # ------------------------------------------------------------------- blocks
@@ -114,7 +125,7 @@ def _qkv_rope(lp, x, cfg, q_pos, pos3):
 
 
 def _attn_block(lp, x, cfg, *, q_pos, window: int, pos3, rules, chunk,
-                arange_pos: bool):
+                arange_pos: bool, mode: str = "none"):
     """Pre-norm self-attention with its residual; returns (x, k, v), the
     post-RoPE k and v with their own KV heads (what a cache holds).
 
@@ -123,9 +134,35 @@ def _attn_block(lp, x, cfg, *, q_pos, window: int, pos3, rules, chunk,
     `causal_self_attention`, the fused kernel, which rounds the
     probabilities to bf16 before the product with v as the reference
     does; fp32 activations take `chunked_attention`, which rounds them
-    the same way (the fused fp32 kernel would not)."""
+    the same way (the fused fp32 kernel would not).
+
+    On a mesh q, k and v are constrained to the layout `mode` and each
+    rank attends with its own shards (`layers.mesh_attention`)."""
     q, k, v = _qkv_rope(lp, x, cfg, q_pos, pos3)
-    if arange_pos and window == 0 and q.dtype == torch.bfloat16:
+    fused = arange_pos and window == 0 and q.dtype == torch.bfloat16
+    if rules.mesh is not None:
+        qspec = L.QSPEC[mode]
+        q = rules.constrain(q, qspec)
+        k_att, v_att = k, v
+        if mode == "seq":
+            # queries stay T-sharded; keys/values gather (GQA KV is small)
+            k_att = rules.constrain(k, ("batch", None, None, None))
+            v_att = rules.constrain(v, ("batch", None, None, None))
+        elif mode == "heads_repkv":
+            # expand GQA -> MHA so the head axis shards cleanly (grok: 8 kv
+            # heads cannot split a 16-way axis; repeated KV shards with Q)
+            g = cfg.num_heads // cfg.num_kv_heads
+            k_att = rules.constrain(torch.repeat_interleave(k, g, dim=2),
+                                    qspec)
+            v_att = rules.constrain(torch.repeat_interleave(v, g, dim=2),
+                                    qspec)
+        else:
+            k = k_att = rules.constrain(k, qspec)
+            v = v_att = rules.constrain(v, qspec)
+        o = L.mesh_attention(rules, mode, q, k_att, v_att, q_pos=q_pos,
+                             kv_pos=q_pos, causal=True, window=window,
+                             chunk=chunk, fused=fused)
+    elif fused:
         o = L.causal_self_attention(q, k, v)
     else:
         o = L.chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
@@ -161,20 +198,28 @@ def forward(
     v_stack)]): with `collect_cache`, the post-RoPE (L, B, T, Kv, hd) keys
     and values; with `last_only`, the logits of the last position only."""
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, rules)
     if vision_embeds is not None:
         tv = min(vision_embeds.shape[1], t)
         x = torch.cat([vision_embeds[:, :tv].to(x.dtype), x[:, tv:]], dim=1)
+    mode = L.attn_shard_mode(cfg, rules)
+    xspec = ("batch", "seq", None) if mode == "seq" else ("batch", None, None)
+    x = rules.constrain(x, xspec)
     arange_pos = positions is None
     q_pos = positions if positions is not None else torch.arange(
         t, dtype=torch.int32, device=tokens.device).expand(b, t)
-    windows = layer_windows(cfg).tolist()
+    windows = layer_windows(cfg)
+    kv_axes = kv_cache_axes(cfg.num_kv_heads, cfg.hd, rules)[1:]
 
     def body(x, lp, window):
         x, k, v = _attn_block(lp, x, cfg, q_pos=q_pos, window=window,
                               pos3=pos3, rules=rules, chunk=chunk,
-                              arange_pos=arange_pos)
+                              arange_pos=arange_pos, mode=mode)
         x, lb = _ffn_block(lp, x, cfg, rules)
+        x = rules.constrain(x, xspec)
+        if collect_cache:
+            # shard the emitted KV (kv heads, else head_dim, else seq)
+            k, v = rules.constrain(k, kv_axes), rules.constrain(v, kv_axes)
         return x, lb, k, v
 
     aux = x.new_zeros((), dtype=torch.float32)
@@ -188,6 +233,8 @@ def forward(
         if collect_cache:
             ks.append(k)
             vs.append(v)
+    if mode == "seq":
+        x = rules.constrain(x, ("batch", None, None))  # free T for vocab-tp
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -222,7 +269,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                                        device=dev)
         cache["v_scale"] = torch.zeros(shape[:4], dtype=torch.float16,
                                        device=dev)
-    return cache
+    if rules.mesh is None:
+        return cache
+    logical = cache_logical(cfg, rules, kv_dtype)
+    return {k: v if k == "idx" else rules.constrain(v, logical[k])
+            for k, v in cache.items()}
 
 
 def cache_logical(cfg: ArchConfig, rules: MeshRules = NO_MESH,
@@ -240,7 +291,7 @@ def cache_logical(cfg: ArchConfig, rules: MeshRules = NO_MESH,
     return out
 
 
-@torch.inference_mode()
+@serving
 def prefill(params, cfg, tokens, max_len: int, *, rules=NO_MESH, chunk=1024,
             pos3=None, vision_embeds=None, kv_dtype: str = "bf16"):
     """Run the full prompt, build the cache on the prompt's device.
@@ -254,20 +305,21 @@ def prefill(params, cfg, tokens, max_len: int, *, rules=NO_MESH, chunk=1024,
         pos3=pos3, vision_embeds=vision_embeds, remat=False, last_only=True)
     cache = init_cache(cfg, b, max_len, rules, kv_dtype=kv_dtype,
                        device=tokens.device)
+    head = (slice(None), slice(None), slice(0, t))
     if kv_dtype == "int8":
         k_stack, ks = L.quantize_kv(k_stack)
         v_stack, vs = L.quantize_kv(v_stack)
-        cache["k_scale"][:, :, :t] = ks
-        cache["v_scale"][:, :, :t] = vs
-    cache["k"][:, :, :t] = k_stack
-    cache["v"][:, :, :t] = v_stack
-    cache["pos"][:, :t] = torch.arange(t, dtype=torch.int32,
-                                       device=tokens.device)
+        assign(cache["k_scale"], head, ks)
+        assign(cache["v_scale"], head, vs)
+    assign(cache["k"], head, k_stack)
+    assign(cache["v"], head, v_stack)
+    assign(cache["pos"], head[1:], torch.arange(t, dtype=torch.int32,
+                                                device=tokens.device))
     cache["idx"] = torch.tensor(t, dtype=torch.int32)
     return logits[:, -1], cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cfg, token, cache, *, rules=NO_MESH, chunk=4096,
                 pos3=None, window_slice: bool = True):
     """One decode step. token: (B,) int. Returns (logits (B, V), cache).
@@ -281,7 +333,7 @@ def decode_step(params, cfg, token, cache, *, rules=NO_MESH, chunk=4096,
     the full cache. The reference carries no int8 scales through that
     branch, so an int8 cache with a sliced config raises."""
     b = token.shape[0]
-    idx = int(cache["idx"])
+    idx = host_int(cache["idx"])
     max_len = cache["k"].shape[2]
     at = min(idx, max_len - 1)
     w = cfg.sliding_window
@@ -293,22 +345,24 @@ def decode_step(params, cfg, token, cache, *, rules=NO_MESH, chunk=4096,
             f"{cfg.name}: the int8 KV cache with window slicing is not "
             "supported (the reference's sliced decode carries no int8 "
             "scales); use kv_dtype='bf16' or window_slice=False")
-    x = L.embed(params["embed"], token[:, None])
+    x = L.embed(params["embed"], token[:, None], rules)
     q_pos = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
     kv_pos = cache["pos"]
-    kv_pos[:, at] = idx
+    assign(kv_pos, (slice(None), at), idx)
     start = min(max(idx - (w - 1), 0), max_len - w)
-    windows = layer_windows(cfg).tolist()
+    windows = layer_windows(cfg)
+    mode = L.attn_shard_mode(cfg, rules, decode=True)
     for i, (lp, window) in enumerate(zip(tree.unstack(params["layers"]),
                                          windows)):
         q, k, v = _qkv_rope(lp, x, cfg, q_pos, pos3)
+        slot = (i, slice(None), at)
         if quantized:
             k, ksc = L.quantize_kv(k)
             v, vsc = L.quantize_kv(v)
-            cache["k_scale"][i, :, at] = ksc[:, 0]
-            cache["v_scale"][i, :, at] = vsc[:, 0]
-        cache["k"][i, :, at] = k[:, 0]
-        cache["v"][i, :, at] = v[:, 0]
+            assign(cache["k_scale"], slot, ksc[:, 0])
+            assign(cache["v_scale"], slot, vsc[:, 0])
+        assign(cache["k"], slot, k[:, 0])
+        assign(cache["v"], slot, v[:, 0])
         k_at, v_at, kv_p = cache["k"][i], cache["v"][i], kv_pos
         ks_at = vs_at = None
         if quantized:
@@ -316,9 +370,15 @@ def decode_step(params, cfg, token, cache, *, rules=NO_MESH, chunk=4096,
         if use_slicing and window > 0:
             k_at, v_at = k_at[:, start:start + w], v_at[:, start:start + w]
             kv_p = kv_p[:, start:start + w]
-        o = L.chunked_attention(q, k_at, v_at, q_pos=q_pos, kv_pos=kv_p,
-                                causal=True, window=window, chunk=chunk,
-                                rules=rules, k_scale=ks_at, v_scale=vs_at)
+        if rules.mesh is not None:
+            o = L.mesh_attention(rules, mode, q, k_at, v_at, q_pos=q_pos,
+                                 kv_pos=kv_p, causal=True, window=window,
+                                 chunk=chunk, k_scale=ks_at, v_scale=vs_at)
+        else:
+            o = L.chunked_attention(q, k_at, v_at, q_pos=q_pos, kv_pos=kv_p,
+                                    causal=True, window=window, chunk=chunk,
+                                    rules=rules, k_scale=ks_at,
+                                    v_scale=vs_at)
         x = x + L.attention_out(lp["attn"], o)
         x, _ = _ffn_block(lp, x, cfg, rules)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -21,7 +21,8 @@ from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import NO_MESH, MeshRules, stack_logical
+from repro_torch.models.sharding import (MeshRules, NO_MESH, assign, host_int,
+                                         stack_logical)
 
 
 def _dtype(cfg):
@@ -47,7 +48,7 @@ def logical_plain_mlp():
 
 
 def plain_mlp(p, x):
-    return L.act_fn("gelu")(x @ p["wi"]) @ p["wo"]
+    return L.matmul(L.act_fn("gelu")(L.matmul(x, p["wi"])), p["wo"])
 
 
 def init_enc_layer(key, cfg, dtype):
@@ -114,15 +115,18 @@ def encode(params, cfg, frames, *, rules=NO_MESH, chunk=1024, remat=True):
     b, t, d = frames.shape
     dtype = _dtype(cfg)
     x = frames.to(dtype) + sinusoid(t, d, frames.device).to(dtype)
+    x = rules.constrain(x, ("batch", None, None))
     pos = torch.arange(t, dtype=torch.int32, device=frames.device).expand(b, t)
+    mode = L.attn_shard_mode(cfg, rules)
 
     def body(x, lp):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = L.attention_qkv(lp["attn"], h, cfg)
-        o = L.chunked_attention(q, k, v, q_pos=pos, kv_pos=pos, causal=False,
-                                chunk=chunk, rules=rules)
+        o = L.attend(rules, mode, q, k, v, q_pos=pos, kv_pos=pos,
+                     causal=False, chunk=chunk)
         x = x + L.attention_out(lp["attn"], o)
-        return x + plain_mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + plain_mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return rules.constrain(x, ("batch", None, None))
 
     for lp in tree.unstack(params["enc_layers"]):
         x = checkpoint(body, x, lp, use_reentrant=False) if remat \
@@ -143,7 +147,9 @@ def cross_kv(params, cfg, memory, rules=NO_MESH):
             v = v + lp["cross_attn"]["bv"]
         xk.append(k)
         xv.append(v)
-    return torch.stack(xk), torch.stack(xv)
+    xk = rules.constrain(torch.stack(xk), (None, "batch", None, "tp", None))
+    xv = rules.constrain(torch.stack(xv), (None, "batch", None, "tp", None))
+    return xk, xv
 
 
 def decode(params, cfg, tokens, memory=None, *, xk=None, xv=None,
@@ -155,7 +161,7 @@ def decode(params, cfg, tokens, memory=None, *, xk=None, xv=None,
     teacher-forced training. Returns (logits, new self cache) with a
     cache, else (logits, 0)."""
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, rules)
     d = x.shape[-1]
     dev = x.device
     if xk is None:
@@ -163,10 +169,12 @@ def decode(params, cfg, tokens, memory=None, *, xk=None, xv=None,
     enc_t = xk.shape[2]
     mem_pos = torch.arange(enc_t, dtype=torch.int32, device=dev).expand(b, enc_t)
     use_cache = self_cache is not None
-    idx = int(self_cache["idx"]) if use_cache else 0
+    idx = host_int(self_cache["idx"]) if use_cache else 0
     q_pos = idx + torch.arange(t, dtype=torch.int32, device=dev).expand(b, t)
     table = sinusoid(cfg.max_decoder_len, d, dev).to(x.dtype)
     x = x + table[torch.clamp(q_pos[0], 0, cfg.max_decoder_len - 1).long()]
+    x = rules.constrain(x, ("batch", None, None))
+    mode = L.attn_shard_mode(cfg, rules)
 
     kv_pos = write_at = None
     if use_cache:
@@ -176,30 +184,31 @@ def decode(params, cfg, tokens, memory=None, *, xk=None, xv=None,
                              f"of {max_len}")
         write_at = min(idx, max_len - t)
         kv_pos = self_cache["pos"]
-        kv_pos[:, write_at:write_at + t] = q_pos
+        assign(kv_pos, (slice(None), slice(write_at, write_at + t)), q_pos)
 
     def body(x, lp, xk_l, xv_l, kc, vc):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = L.attention_qkv(lp["self_attn"], h, cfg)
         if kc is not None:
-            kc[:, write_at:write_at + t] = k
-            vc[:, write_at:write_at + t] = v
-            o = L.chunked_attention(q, kc, vc, q_pos=q_pos, kv_pos=kv_pos,
-                                    causal=True, chunk=chunk, rules=rules)
-        elif q.dtype == torch.bfloat16:
-            o = L.causal_self_attention(q, k, v)
+            at = (slice(None), slice(write_at, write_at + t))
+            assign(kc, at, k)
+            assign(vc, at, v)
+            o = L.attend(rules, mode, q, kc, vc, q_pos=q_pos, kv_pos=kv_pos,
+                         causal=True, chunk=chunk)
         else:
-            o = L.chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
-                                    causal=True, chunk=chunk, rules=rules)
+            o = L.attend(rules, mode, q, k, v, q_pos=q_pos, kv_pos=q_pos,
+                         causal=True, chunk=chunk,
+                         fused=q.dtype == torch.bfloat16)
         x = x + L.attention_out(lp["self_attn"], o)
         hx = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
         qx = torch.einsum("btd,dhk->bthk", hx, lp["cross_attn"]["wq"])
         if cfg.qkv_bias:
             qx = qx + lp["cross_attn"]["bq"]
-        ox = L.chunked_attention(qx, xk_l, xv_l, q_pos=q_pos, kv_pos=mem_pos,
-                                 causal=False, chunk=chunk, rules=rules)
+        ox = L.attend(rules, mode, qx, xk_l, xv_l, q_pos=q_pos,
+                      kv_pos=mem_pos, causal=False, chunk=chunk)
         x = x + L.attention_out(lp["cross_attn"], ox)
-        return x + plain_mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = x + plain_mlp(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return rules.constrain(x, ("batch", None, None))
 
     layers = tree.unstack(params["dec_layers"])
     for i, lp in enumerate(layers):

@@ -24,8 +24,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
-from repro_torch.models.sharding import (NO_MESH, MeshRules, kv_cache_axes,
-                                         stack_logical)
+from repro_torch.models.sharding import (MeshRules, NO_MESH, assign, host_int,
+                                         kv_cache_axes, serving, stack_logical,
+                                         tree_constrain)
 
 
 def _dtype(cfg):
@@ -84,13 +85,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     shape = (num_shared_points(cfg), batch, max_len, cfg.num_kv_heads, cfg.hd)
+    axes = kv_cache_axes(cfg.num_kv_heads, cfg.hd, rules)
     return {
         "mamba": mamba2.init_state(cfg, batch, cfg.num_layers, rules, dtype,
                                    device=dev),
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
-                          device=dev),
+        "k": rules.constrain(torch.zeros(shape, dtype=dtype, device=dev),
+                             axes),
+        "v": rules.constrain(torch.zeros(shape, dtype=dtype, device=dev),
+                             axes),
+        "pos": rules.constrain(torch.full((batch, max_len), -1,
+                                          dtype=torch.int32, device=dev),
+                               ("batch", None)),
         "idx": torch.zeros((), dtype=torch.int32),
     }
 
@@ -115,23 +120,22 @@ def _shared_block(params, pt_idx, x, x0, cfg, *, q_pos, cache_k, cache_v,
     at positions 0..T-1, by the fused kernel for bf16 activations."""
     sp = params["shared"]
     adapter = params["adapters"][pt_idx]
-    h = torch.cat([x, x0], dim=-1) @ adapter
+    h = L.matmul(torch.cat([x, x0], dim=-1), adapter)
     hn = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
     q, k, v = L.attention_qkv(sp["attn"], hn, cfg)
     q = L.apply_rope(q, q_pos, cfg.rope_theta)
     k = L.apply_rope(k, q_pos, cfg.rope_theta)
+    mode = L.attn_shard_mode(cfg, rules)
     if cache_k is not None:
-        t = k.shape[1]
-        cache_k[:, write_at:write_at + t] = k
-        cache_v[:, write_at:write_at + t] = v
-        o = L.chunked_attention(q, cache_k, cache_v, q_pos=q_pos,
-                                kv_pos=kv_pos, causal=True, chunk=chunk,
-                                rules=rules)
-    elif q.dtype == torch.bfloat16:
-        o = L.causal_self_attention(q, k, v)
+        at = (slice(None), slice(write_at, write_at + k.shape[1]))
+        assign(cache_k, at, k)
+        assign(cache_v, at, v)
+        o = L.attend(rules, mode, q, cache_k, cache_v, q_pos=q_pos,
+                     kv_pos=kv_pos, causal=True, chunk=chunk)
     else:
-        o = L.chunked_attention(q, k, v, q_pos=q_pos, kv_pos=q_pos,
-                                causal=True, chunk=chunk, rules=rules)
+        o = L.attend(rules, mode, q, k, v, q_pos=q_pos, kv_pos=q_pos,
+                     causal=True, chunk=chunk,
+                     fused=q.dtype == torch.bfloat16)
     h = h + L.attention_out(sp["attn"], o)
     h = h + L.mlp(sp["mlp"], L.rms_norm(h, sp["ln2"], cfg.norm_eps), cfg)
     return x + h
@@ -147,11 +151,12 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, rules=NO_MESH,
     Returns (logits fp32, cache) with `return_cache`, else (logits, 0).
     With `remat`, each mamba layer runs under `torch.utils.checkpoint`."""
     b, t = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, rules)
+    x = rules.constrain(x, ("batch", None, None))
     x0 = x
     if cache is None and return_cache:
         cache = init_cache(cfg, b, t, rules, device=tokens.device)
-    idx = int(cache["idx"]) if cache is not None else 0
+    idx = host_int(cache["idx"]) if cache is not None else 0
     q_pos = idx + torch.arange(t, dtype=torch.int32,
                                device=tokens.device).expand(b, t)
     kv_pos = write_at = None
@@ -161,20 +166,23 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, rules=NO_MESH,
             raise ValueError(f"{t} tokens do not fit a cache of {max_len}")
         write_at = min(idx, max_len - t)
         kv_pos = cache["pos"]
-        kv_pos[:, write_at:write_at + t] = q_pos
+        assign(kv_pos, (slice(None), slice(write_at, write_at + t)), q_pos)
         states = tree.unstack(cache["mamba"])
     else:
         d_in, nheads, n, conv_dim = mamba2.dims(cfg)
         zero = {"ssm": x.new_zeros((b, nheads, mamba2.MAMBA_HEAD_DIM, n),
                                    dtype=torch.float32),
                 "conv": x.new_zeros((b, mamba2.CONV_K - 1, conv_dim))}
+        zero = tree_constrain(rules, zero, {"ssm": ("batch", "tp", None, None),
+                                            "conv": ("batch", None, "tp")})
         states = [zero] * cfg.num_layers
     layers = tree.unstack(params["layers"])
 
     def mamba_layer(x, lp, st):
         out, st_new = mamba2.block(lp, x, cfg, st, chunk=ssm_chunk,
                                    rules=rules)
-        return x + out, st_new["ssm"], st_new["conv"]
+        x = rules.constrain(x + out, ("batch", None, None))
+        return x, st_new["ssm"], st_new["conv"]
 
     def mamba_seg(x, lo: int, hi: int):
         for i in range(lo, hi):
@@ -184,8 +192,8 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, rules=NO_MESH,
             else:
                 x, ssm, conv = mamba_layer(x, layers[i], states[i])
             if cache is not None:
-                states[i]["ssm"].copy_(ssm)
-                states[i]["conv"].copy_(conv)
+                assign(states[i]["ssm"], (...,), ssm)
+                assign(states[i]["conv"], (...,), conv)
         return x
 
     every = cfg.shared_attn_every
@@ -210,7 +218,7 @@ def forward(params, cfg: ArchConfig, tokens, *, cache=None, rules=NO_MESH,
     return logits, x.new_zeros((), dtype=torch.float32)
 
 
-@torch.inference_mode()
+@serving
 def prefill(params, cfg, tokens, max_len: int, *, rules=NO_MESH,
             ssm_chunk=64, attn_chunk=1024):
     """Run the prompt into a fresh cache of `max_len` positions on the
@@ -223,7 +231,7 @@ def prefill(params, cfg, tokens, max_len: int, *, rules=NO_MESH,
     return logits[:, -1], cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(params, cfg, token, cache, *, rules=NO_MESH,
                 attn_chunk: int = 4096):
     """One decode step, token: (B,) int, the cache written in place.

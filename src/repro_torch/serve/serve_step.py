@@ -1,6 +1,6 @@
 """Serve steps: prefill (prompt -> cache) and decode (one token against
 the cache), and `generate`, which drives them under
-`torch.inference_mode()`.
+`torch.inference_mode()` (`torch.no_grad()` on a mesh).
 
 Greedy decoding follows the reference token for token. Sampling
 (`temperature > 0`) draws from an explicit `torch.Generator` where the
@@ -16,7 +16,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models import rwkv6, whisper, zamba2
-from repro_torch.models.sharding import NO_MESH, MeshRules
+from repro_torch.models.sharding import (NO_MESH, MeshRules, inference,
+                                         serving)
 
 
 def make_decode_step(cfg: ArchConfig, rules: MeshRules = NO_MESH,
@@ -37,8 +38,11 @@ def make_prefill(cfg: ArchConfig, rules: MeshRules = NO_MESH,
     `max_decoder_len`, returning {"self", "xk", "xv"}."""
     mod = M.family_module(cfg)
 
-    @torch.inference_mode()
     def prefill(params, batch):
+        with inference(rules):
+            return _prefill(params, batch)
+
+    def _prefill(params, batch):
         if cfg.is_encoder_decoder:
             frames = batch["frames"]
             memory = whisper.encode(params, cfg, frames, rules=rules,
@@ -68,13 +72,14 @@ def make_whisper_decode_step(cfg: ArchConfig, rules: MeshRules = NO_MESH,
                              chunk: int = 4096):
     """(params, token, {"self", "xk", "xv"}) -> (logits, new state); the
     self cache is written in place."""
-    @torch.inference_mode()
     def decode_step(params, token, cache):
-        logits, self_new = whisper.decode(
-            params, cfg, token[:, None], xk=cache["xk"], xv=cache["xv"],
-            self_cache=cache["self"], rules=rules, chunk=chunk, remat=False)
-        return logits[:, 0], {"self": self_new, "xk": cache["xk"],
-                              "xv": cache["xv"]}
+        with inference(rules):
+            logits, self_new = whisper.decode(
+                params, cfg, token[:, None], xk=cache["xk"], xv=cache["xv"],
+                self_cache=cache["self"], rules=rules, chunk=chunk,
+                remat=False)
+            return logits[:, 0], {"self": self_new, "xk": cache["xk"],
+                                  "xv": cache["xv"]}
     return decode_step
 
 
@@ -83,7 +88,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@torch.inference_mode()
+@serving
 def generate(params, cfg: ArchConfig, batch: dict, steps: int, *,
              rules: MeshRules = NO_MESH, chunk: int = 1024,
              temperature: float = 0.0, key: torch.Generator | None = None,

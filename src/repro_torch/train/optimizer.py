@@ -14,6 +14,8 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import tree
 
@@ -49,9 +51,14 @@ def init_opt_state(params, dtype=torch.float32) -> dict:
     """dtype=bfloat16 halves the moments' memory; the update math still
     runs in fp32."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dtype, device=p.device)
+        return torch.zeros_like(p, dtype=dtype)
 
     return {"m": tree.map(zeros, params), "v": tree.map(zeros, params)}
+
+
+def opt_logical(logical_params) -> dict:
+    """m/v shard exactly like their parameters."""
+    return {"m": logical_params, "v": logical_params}
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -59,10 +66,41 @@ def global_norm(grads) -> torch.Tensor:
                           for g in tree.leaves(grads)))
 
 
+def _local_global_norm(grads) -> torch.Tensor:
+    """`global_norm` of DTensor leaves from their local shards: each
+    rank's sum of squares, divided by the number of ranks that hold the
+    same shard, all-reduced over each mesh dim in turn (the same sum in
+    another order). A replicated 0-d DTensor."""
+    leaves = tree.leaves(grads)
+    mesh = leaves[0].device_mesh
+    total = None
+    for g in leaves:
+        copies = 1
+        for dim, place in enumerate(g.placements):
+            if place.is_replicate():
+                copies *= mesh.size(dim)
+        part = torch.sum(g.to_local().float() ** 2) / copies
+        total = part if total is None else total + part
+    for dim in range(mesh.ndim):          # the sum over every rank
+        total = funcol.wait_tensor(funcol.all_reduce(
+            total, "sum", mesh.get_group(dim)))
+    return DTensor.from_local(torch.sqrt(total), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step):
-    """Returns (new params, {"m", "v"}, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    """Returns (new params, {"m", "v"}, {"grad_norm", "lr"}).
+
+    DTensor leaves (a mesh) are updated shard by shard: the update is
+    elementwise, so each rank runs it on its own shards, and only the
+    global norm crosses ranks."""
+    if isinstance(tree.leaves(params)[0], DTensor):
+        return _adamw_update_local(cfg, params, grads, opt_state, step)
+    return _adamw(cfg, params, grads, opt_state, step, global_norm(grads))
+
+
+def _adamw(cfg: AdamWConfig, params, grads, opt_state, step, gnorm):
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     t = (step + 1).float()
@@ -83,6 +121,31 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step):
     return new_params, {"m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
 
 
+def _adamw_update_local(cfg, params, grads, opt_state, step):
+    gnorm = _local_global_norm(grads)
+    local = {"p": tree.map(DTensor.to_local, params),
+             "g": tree.map(lambda g, p: g.redistribute(
+                 p.device_mesh, p.placements).to_local(), grads, params),
+             "m": tree.map(DTensor.to_local, opt_state["m"]),
+             "v": tree.map(DTensor.to_local, opt_state["v"])}
+    # the step and the norm are replicated scalars: every rank holds them
+    new_p, new_opt, info = _adamw(
+        cfg, local["p"], local["g"], {"m": local["m"], "v": local["v"]},
+        step.to_local() if isinstance(step, DTensor) else step,
+        gnorm.to_local())
+    info = {"grad_norm": gnorm,
+            "lr": DTensor.from_local(info["lr"], gnorm.device_mesh,
+                                     gnorm.placements, run_check=False)}
+
+    def wrap(x, like):
+        return DTensor.from_local(x, like.device_mesh, like.placements,
+                                  run_check=False)
+
+    return (tree.map(wrap, new_p, params),
+            {"m": tree.map(wrap, new_opt["m"], opt_state["m"]),
+             "v": tree.map(wrap, new_opt["v"], opt_state["v"])}, info)
+
+
 def _pick(out, i: int):
     """Element i of the tuples at the leaves of `out`."""
     if isinstance(out, dict):
@@ -92,8 +155,8 @@ def _pick(out, i: int):
 
 # ------------------------------------------------- int8 EF gradient compress
 def init_ef_state(params):
-    return tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree.map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 @torch.no_grad()

@@ -2,7 +2,7 @@
 
 TrainState = {"params", "opt": {"m", "v"}, "step"} plus "ef" (the error
 feedback) when gradients are compressed: a nested dict of tensors on one
-device.
+device, or of DTensors on a mesh (`state_logical` names their axes).
 
 The step is functional, as the reference's is: `train_step(state, batch)`
 returns a new state dict of new tensors and leaves `state` as it was, so
@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
@@ -54,28 +56,41 @@ def init_state(generator_or_seed, cfg: ArchConfig, tcfg: TrainConfig,
     return state
 
 
+def state_logical(cfg: ArchConfig, tcfg: TrainConfig, rules: MeshRules):
+    lp = M.logical_params(cfg, rules)
+    s = {"params": lp, "opt": opt.opt_logical(lp), "step": ()}
+    if tcfg.compress_grads:
+        s["ef"] = lp
+    return s
+
+
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                     rules: MeshRules = NO_MESH):
     """`train_step(state, batch) -> (new_state, metrics)`; `batch` is a
     dict of (B, T) token arrays (numpy or tensors), moved to the state's
-    device once."""
+    device once. On a mesh the state's leaves and the batch are DTensors
+    placed by `tree_shardings` (a plain batch is sharded by
+    `model.batch_logical`), and the accumulated gradients are pinned to
+    the parameters' placements before the update."""
+    logical_p = M.logical_params(cfg, rules)
     def loss_and_grads(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
-        loss = M.train_loss(tree.unflatten(params, leaves), cfg, batch,
-                            rules=rules, chunk=tcfg.attn_chunk,
-                            remat=tcfg.remat)
-        grads = torch.autograd.grad(loss, leaves)
+        with rules.context():
+            loss = M.train_loss(tree.unflatten(params, leaves), cfg, batch,
+                                rules=rules, chunk=tcfg.attn_chunk,
+                                remat=tcfg.remat)
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree.unflatten(params, grads)
 
     def train_step(state, batch):
         params = state["params"]
         dev = state["step"].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: _batch_leaf(rules, k, v, dev) for k, v in batch.items()}
         if tcfg.microbatches > 1:
             n = tcfg.microbatches
-            parts = {k: v.chunk(n, dim=0) for k, v in batch.items()}
-            grads = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            parts = {k: _split(k, v, n) for k, v in batch.items()}
+            grads = tree.map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             params)
             losses = []
             for i in range(n):
                 loss, g = loss_and_grads(params, {k: v[i] for k, v in
@@ -85,7 +100,9 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
             loss = torch.stack(losses).mean()
         else:
             loss, grads = loss_and_grads(params, batch)
-        grads = tree_constrain(rules, grads, None)
+        # pin gradients to the parameter sharding AFTER accumulation: one
+        # reduction into the FSDP shards for the whole step
+        grads = tree_constrain(rules, grads, logical_p)
 
         new_state = dict(state)
         if tcfg.compress_grads:
@@ -97,3 +114,33 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         return new_state, {"loss": loss, **info}
 
     return train_step
+
+
+def _batch_leaf(rules: MeshRules, key: str, value, dev) -> torch.Tensor:
+    """A batch leaf on the state's device; on a mesh, a plain tensor is
+    sharded over its batch axis (a DTensor is taken as placed)."""
+    if isinstance(value, DTensor):
+        return value
+    value = torch.as_tensor(value, device=dev)
+    if rules.mesh is None:
+        return value
+    batch_dim = 1 if key == "pos3" else 0
+    logical = tuple("batch" if i == batch_dim else None
+                    for i in range(value.ndim))
+    return rules.constrain(value, logical)
+
+
+def _split(key: str, value: torch.Tensor, n: int) -> tuple:
+    """`n` microbatches of a batch leaf, split on its batch axis (axis 1
+    of `pos3`). A DTensor is split rank by rank: microbatch i is every
+    data shard's own i-th slice, so no rows move between ranks (a
+    different grouping of rows into microbatches than the whole batch's
+    i-th slice; the step's mean loss and summed gradients are the same
+    sums in another order)."""
+    dim = 1 if key == "pos3" else 0
+    if not isinstance(value, DTensor):
+        return value.chunk(n, dim=dim)
+    place = tuple(value.placements)
+    return local_map(lambda t: tuple(t.chunk(n, dim=dim)),
+                     out_placements=tuple(place for _ in range(n)),
+                     device_mesh=value.device_mesh)(value)

@@ -298,15 +298,17 @@ def test_init_params_layout_matches_reference(arch):
 def test_family_and_logical_params_match_reference(arch):
     """`family_module` picks the reference's family for every arch, and
     the params' logical trees (train and decode) equal the reference's
-    off-mesh."""
+    off-mesh, as do the attention layouts of every mode (the mesh-only
+    ones included; on a mesh, `tests/test_torch_sharding.py`)."""
     cfg, jcfg = _configs(arch, None)
     assert M.family_module(cfg).__name__.rsplit(".", 1)[1] == \
         JM.family_module(jcfg).__name__.rsplit(".", 1)[1]
     for decode in (False, True):
         assert M.logical_params(cfg, M.NO_MESH, decode=decode) == \
             JM.logical_params(jcfg, JM.NO_MESH, decode=decode)
-    with pytest.raises(NotImplementedError, match="17h"):
-        L.logical_attention(cfg, "hd")           # a mesh-only layout
+    for mode in ("heads", "heads_repkv", "hd", "seq", "none"):
+        assert L.logical_attention(cfg, mode) == \
+            JL.logical_attention(jcfg, mode)
 
 
 # ------------------------------------------------------- MoE and M-RoPE
