@@ -155,12 +155,15 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    the load and read after each); `reshard_state` onto a fresh mesh and
    one more step, whose loss equals the no-mesh resume's;
    10b. `launch/dryrun.py` at production size, each cell in its own
-   process, all at once: smollm_360m train_4k on the (16, 16) and
-   (2, 16, 16) meshes, qwen2_15b decode_32k and grok1_314b train_4k on
-   (16, 16), over fake 256- and 512-rank worlds and fake tensors on the
-   card's device type (nothing allocated): each record's per-device
-   bytes, FLOPs, collective bytes by kind, dominant roofline term (the
-   H100 SXM's datasheet constants) and seconds.
+   process, all at once, started before 10a and run beside it:
+   smollm_360m train_4k on the (16, 16) and (2, 16, 16) meshes,
+   qwen2_15b decode_32k and grok1_314b train_4k on (16, 16), over fake
+   256- and 512-rank worlds and fake tensors on the card's device type
+   (nothing allocated): each record's per-device
+   bytes (printed beside the earlier release's, `DRYRUN_BEFORE`), FLOPs,
+   collective bytes by kind, dominant roofline term (the H100 SXM's
+   datasheet constants) and seconds; fails if a cell does not fit the
+   card's 80e9 bytes.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -2130,6 +2133,14 @@ DRYRUN_CELLS = (("smollm_360m", "train_4k", "single"),
                 ("qwen2_15b", "decode_32k", "single"),
                 ("grok1_314b", "train_4k", "single"))
 DRYRUN_TIMEOUT_S = 600
+# each cell's per-device bytes (arguments + eager peak) before the loss
+# on a mesh became vocab-parallel: NVIDIA H100 80GB HBM3, 700 W, torch
+# 2.11, rounded as PERF.md's phase 10b table (kept for the comparison
+# printed beside this run's)
+DRYRUN_BEFORE = {("smollm_360m", "train_4k", "single"): 59.85e9,
+                 ("smollm_360m", "train_4k", "multi"): 55.71e9,
+                 ("qwen2_15b", "decode_32k", "single"): 0.607e9,
+                 ("grok1_314b", "train_4k", "single"): 101.99e9}
 
 
 def _on(x, device: str) -> bool:
@@ -2290,11 +2301,12 @@ def dryrun_cmd(arch: str, shape: str, mesh: str, out: str,
             "--device", device, "--force"]
 
 
-def dryrun_phase(records: list, device: str = "cuda") -> dict:
+def dryrun_phase(records: list, device: str = "cuda", during=None) -> dict:
     """Phase 10b: the cells of `DRYRUN_CELLS`, each through
     `python -m repro_torch.launch.dryrun` in its own process, all at
-    once (host work only: fake tensors); fails if a cell fails or
-    allocates on the card. Returns its record."""
+    once (host work only: fake tensors), with `during()` run in this
+    process while they run; fails if a cell fails, does not fit the card
+    or allocates on the card. Returns its record."""
     start = time.perf_counter()
     out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     root = Path(__file__).resolve().parent
@@ -2308,15 +2320,17 @@ def dryrun_phase(records: list, device: str = "cuda") -> dict:
                                                       device),
                                            cwd=root, env=env, stdout=log,
                                            stderr=subprocess.STDOUT)))
+        if during is not None:
+            during()
         ended = {}                  # each process's own seconds
-        deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+        deadline = start + DRYRUN_TIMEOUT_S
         while len(ended) < len(procs):
-            if time.perf_counter() > deadline:
-                raise AssertionError(f"phase 10b: cells still running after "
-                                     f"{DRYRUN_TIMEOUT_S} s")
             for i, (*_, tic, _, proc) in enumerate(procs):
                 if i not in ended and proc.poll() is not None:
                     ended[i] = time.perf_counter() - tic
+            if len(ended) < len(procs) and time.perf_counter() > deadline:
+                raise AssertionError(f"phase 10b: cells still running after "
+                                     f"{DRYRUN_TIMEOUT_S} s")
             time.sleep(0.5)
         for i, (arch, shape, mesh, tic, log, proc) in enumerate(procs):
             rc, seconds = proc.returncode, ended[i]
@@ -2335,6 +2349,8 @@ def dryrun_phase(records: list, device: str = "cuda") -> dict:
             cell = dict(arch=arch, shape=shape, mesh=mesh, chips=r["chips"],
                         seconds=seconds, step_run_s=r["compile_s"],
                         per_device_bytes=r["per_device_bytes"],
+                        per_device_bytes_before=DRYRUN_BEFORE[
+                            (arch, shape, mesh)],
                         fits=r["fits"], memory=r["memory_analysis"],
                         device_allocated_bytes=r["device_allocated_bytes"],
                         flops_per_device=h["flops_per_device"],
@@ -2345,8 +2361,17 @@ def dryrun_phase(records: list, device: str = "cuda") -> dict:
                         params_total=r["params_total"],
                         model_flops_global=r["model_flops_global"],
                         useful_compute_ratio=r["useful_compute_ratio"])
-            print(f"   dryrun {arch} {shape} {mesh}: {json.dumps(cell)}")
+            print(f"   dryrun {arch} {shape} {mesh}: per-device bytes "
+                  f"{cell['per_device_bytes']:.4e} (before: "
+                  f"{cell['per_device_bytes_before']:.4e}); "
+                  f"{json.dumps(cell)}")
             cells.append(cell)
+        misfits = [(c["arch"], c["shape"], c["mesh"], c["per_device_bytes"])
+                   for c in cells if not c["fits"]]
+        if misfits:
+            raise AssertionError(f"phase 10b: cells past the card's "
+                                 f"{dryrun.HBM_BYTES} bytes a device: "
+                                 f"{misfits}")
     finally:
         for *_, log, proc in procs:
             if proc.poll() is None:
@@ -2362,9 +2387,12 @@ def dryrun_phase(records: list, device: str = "cuda") -> dict:
 
 
 def mesh_phase(records: list, device: str = "cuda") -> dict:
-    """Phase 10: 10a then 10b; returns {"launches": 10a's}."""
-    train = mesh_train(records, device)
-    dryrun_phase(records, device)
+    """Phase 10: 10b's cells started, 10a run beside them (the cells are
+    host work in other processes), then 10b's results; returns
+    {"launches": 10a's}."""
+    train = {}
+    dryrun_phase(records, device,
+                 during=lambda: train.update(mesh_train(records, device)))
     return {"launches": train["launches"]}
 
 

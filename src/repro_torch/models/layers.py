@@ -13,8 +13,8 @@ Attention has two routes. Causal bf16 self-attention at positions
 PyTorch's `scaled_dot_product_attention`; every other case (explicit
 positions, -1 for invalid slots, a sliding window, fp32 activations)
 goes through `chunked_attention`, an online softmax over KV chunks in
-plain torch that autograd differentiates. Both round q, k and v to bf16
-before the products, as the reference does.
+plain torch with the reference's recompute backward (`_Flash`). Both
+round q, k and v to bf16 before the products, as the reference does.
 
 On a mesh (DTensor activations) attention, the attention projections,
 2-D products, the embedding and the MoE experts run shard by shard in
@@ -35,8 +35,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.sharding import (NO_MESH, AllReduce, MeshRules,
-                                         local_apply, local_region,
-                                         mesh_matmul)
+                                         local_apply, local_extent,
+                                         local_region, mesh_matmul)
 
 
 # --------------------------------------------------------------------- utils
@@ -141,9 +141,10 @@ def chunked_attention(
 ) -> torch.Tensor:
     """Attention by an online softmax over KV chunks, in the reference's
     arithmetic: q, k, v and the probabilities rounded to bf16, scores and
-    sums in fp32, fully masked rows 0. Plain torch, so autograd gives the
-    gradients; the running max is held out of the graph (the softmax does
-    not depend on it).
+    sums in fp32, fully masked rows 0. For Tq > 1 the gradients are the
+    reference's recompute backward (`_Flash`); a single query (decode,
+    the int8 cache, `score_reduce`) is differentiated by autograd through
+    the loop.
 
     `k_scale` / `v_scale` ((B, S, Kv)) make k and v an int8 cache: a
     decode-path feature (Tq = 1). Each chunk is dequantized on its own, as
@@ -167,13 +168,38 @@ def chunked_attention(
     g = h // kv_heads
     chunk = min(chunk, s)
     scale = 1.0 / math.sqrt(head_dim or hd)
-    qg = _bf16(q.reshape(b, tq, kv_heads, g, hd).permute(0, 2, 3, 1, 4))
-    acc = q.new_zeros((b, kv_heads, g, tq, hd), dtype=torch.float32)
-    m = q.new_full((b, kv_heads, g, tq), -math.inf, dtype=torch.float32)
-    l = q.new_zeros((b, kv_heads, g, tq), dtype=torch.float32)
-    for c in range(0, s, chunk):
+    # (B, Kv, G, Tq, hd) in bf16, as the reference's qg: its gradient is
+    # rounded to bf16 too
+    qg = q.reshape(b, tq, kv_heads, g, hd).permute(0, 2, 3, 1, 4).to(
+        torch.bfloat16)
+    if tq > 1 and not quantized and score_reduce is None:
+        out = _Flash.apply(qg, k, v, kv_pos, q_pos, causal, window, scale,
+                           chunk)
+    else:
+        out, _ = _flash_fwd_scan(qg, k, v, kv_pos, q_pos, causal, window,
+                                 scale, chunk, k_scale, v_scale, score_reduce,
+                                 need_lse=False)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, hd)
+    return out.to(q.dtype)
+
+
+def _flash_fwd_scan(qg, k, v, kv_pos, q_pos, causal: bool, window: int,
+                    scale: float, chunk: int, k_scale=None, v_scale=None,
+                    score_reduce=None, need_lse: bool = True):
+    """The online softmax over KV chunks of `chunk` slots (the last may be
+    short). qg: (B, Kv, G, Tq, hd) bf16; k, v: (B, S, Kv, hd), or int8
+    with (B, S, Kv) `k_scale` / `v_scale`. Returns (out, lse), fp32
+    (B, Kv, G, Tq, hd) and (B, Kv, G, Tq), lse = m + log l (None unless
+    `need_lse`). Differentiable by autograd (the running max held out of
+    the graph: the softmax does not depend on it)."""
+    b, kv_heads, g, tq, hd = qg.shape
+    qg = qg.float()
+    acc = qg.new_zeros((b, kv_heads, g, tq, hd))
+    m = qg.new_full((b, kv_heads, g, tq), -math.inf)
+    l = qg.new_zeros((b, kv_heads, g, tq))
+    for c in range(0, k.shape[1], chunk):
         k_i, v_i = k[:, c:c + chunk], v[:, c:c + chunk]
-        if quantized:
+        if k_scale is not None:
             k_i = k_i.to(torch.bfloat16) * k_scale[:, c:c + chunk, :, None].to(
                 torch.bfloat16)
             v_i = v_i.to(torch.bfloat16) * v_scale[:, c:c + chunk, :, None].to(
@@ -195,8 +221,52 @@ def chunked_attention(
             "bkgtc,bckh->bkgth", _bf16(p), v_i)
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, tq, h, hd)
-    return out.to(q.dtype)
+    if not need_lse:
+        return out, None
+    return out, m_safe + torch.log(torch.clamp(l, min=1e-30))
+
+
+class _Flash(torch.autograd.Function):
+    """`_flash_fwd_scan` with the reference's recompute backward
+    (`_flash_bwd`): only (qg, k, v, the positions, out, lse) are saved,
+    and the backward streams the KV chunks again, recomputing each
+    chunk's probabilities from lse. Live memory O(Tq x chunk) in both
+    directions, where autograd through the loop keeps every chunk's fp32
+    scores, masks and probabilities, O(Tq x S). The positions, `causal`,
+    `window`, `scale` and `chunk` are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, kv_pos, q_pos, causal, window, scale, chunk):
+        out, lse = _flash_fwd_scan(qg, k, v, kv_pos, q_pos, causal, window,
+                                   scale, chunk)
+        ctx.save_for_backward(qg, k, v, kv_pos, q_pos, out, lse)
+        ctx.args = (causal, window, scale, chunk)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        qg, k, v, kv_pos, q_pos, out, lse = ctx.saved_tensors
+        causal, window, scale, chunk = ctx.args
+        qf = qg.float()
+        do = do.float()
+        delta = torch.sum(do * out, dim=-1)                  # (B,Kv,G,Tq)
+        dq = torch.zeros_like(qf)
+        dk = torch.zeros_like(k, dtype=torch.float32)
+        dv = torch.zeros_like(v, dtype=torch.float32)
+        for c in range(0, k.shape[1], chunk):
+            k_i = _bf16(k[:, c:c + chunk])
+            sc = torch.einsum("bkgth,bckh->bkgtc", qf, k_i) * scale
+            valid = _mask_chunk(kv_pos[:, c:c + chunk], q_pos, causal, window)
+            p = torch.where(valid, torch.exp(sc - lse[..., None]), 0.0)
+            dv[:, c:c + chunk] = torch.einsum("bkgtc,bkgth->bckh", p, do)
+            dp = torch.einsum("bkgth,bckh->bkgtc", do,
+                              v[:, c:c + chunk].float())
+            ds = _bf16(p * (dp - delta[..., None]) * scale)
+            dq = dq + torch.einsum("bkgtc,bckh->bkgth", ds, k_i)
+            dk[:, c:c + chunk] = torch.einsum("bkgtc,bkgth->bckh", ds, qf)
+        return (dq.to(qg.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
 
 
 def causal_self_attention(q: torch.Tensor, k: torch.Tensor,
@@ -611,7 +681,9 @@ def _mesh_embed(table, tokens, rules: MeshRules):
     torch version): each rank looks its batch rows up in its slice of
     the vocabulary (the table's FSDP shards gathered), rows outside the
     slice are 0, and the sum over the tensor axis completes them
-    (Megatron's vocab-parallel embedding)."""
+    (Megatron's vocab-parallel embedding). A slice's offset is DTensor's
+    (`sharding.local_extent`): a vocabulary the axis does not divide has
+    shorter slices on its last ranks."""
     mesh = rules.dmesh
     tdim = mesh.mesh_dim_names.index(rules.tensor)
     tokens = rules.constrain(tokens, ("batch",) + (None,) * (tokens.ndim - 1))
@@ -620,12 +692,11 @@ def _mesh_embed(table, tokens, rules: MeshRules):
                   for i, p in enumerate(table.placements))
     vocab_split = tab_p[tdim].is_shard(0)
     group = mesh.get_group(tdim)
-    rank = mesh.get_local_rank(tdim)
+    _, lo = local_extent(table.shape, mesh, tab_p, 0)
 
     def lookup(tab, tok):
         if not vocab_split:
             return tab[tok]
-        lo = rank * tab.shape[0]
         local = tok - lo
         inside = (local >= 0) & (local < tab.shape[0])
         rows = tab[torch.where(inside, local, 0)]

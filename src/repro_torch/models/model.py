@@ -11,12 +11,16 @@ where the reference would hand back its bf16 state.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import rwkv6, transformer, whisper, zamba2
-from repro_torch.models.sharding import NO_MESH, MeshRules
+from repro_torch.models.sharding import (NO_MESH, AllReduce, MeshRules,
+                                         local_apply, local_extent)
 
 
 def family_module(cfg: ArchConfig):
@@ -42,15 +46,67 @@ def logical_params(cfg: ArchConfig, rules: MeshRules, *, decode: bool = False):
 
 # ------------------------------------------------------------------- losses
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean token loss of (..., V) fp32 logits; on a mesh (DTensor
+    logits) `_mesh_cross_entropy`."""
+    if isinstance(logits, DTensor):
+        return _mesh_cross_entropy(logits, labels)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())
-    if isinstance(gold, DTensor):
-        # a gather over vocab-sharded logits is a masked partial sum:
-        # complete it before the index (DTensor's mask does not follow it)
-        gold = gold.redistribute(gold.device_mesh, [
-            Replicate() if p.is_partial() else p for p in gold.placements])
     return torch.mean(logz - gold[..., 0])
+
+
+def _mesh_cross_entropy(logits: DTensor, labels) -> DTensor:
+    """Megatron's vocab-parallel cross-entropy, shard by shard in a
+    `local_map` region: no rank holds more of the logits than its own
+    (rows, V / tp) shard. DTensor's `logsumexp` over a vocab-sharded dim
+    would gather the whole vocabulary, and `gather`'s backward scatters
+    into zeros of the global logits' shape.
+
+    Per row: the local max, completed by an all-reduce MAX over the mesh
+    dims that shard the vocabulary (out of the graph); the local
+    sum(exp(x - m)), completed by an all-reduce SUM, so logz = m + log s;
+    the gold logit, gathered where the label falls in the rank's slice
+    (its offset is DTensor's, `sharding.local_extent`) and 0 elsewhere,
+    completed by an all-reduce SUM. The rows' sum is all-reduced over
+    the mesh dims that shard the rows, and the mean is a replicated
+    scalar DTensor. The reference's arithmetic, summed in another order."""
+    mesh = logits.device_mesh
+    vocab = logits.ndim - 1
+    lp = tuple(p if p.is_shard() else Replicate() for p in logits.placements)
+    rows = tuple(p if p.is_shard() and p.dim < vocab else Replicate()
+                 for p in lp)
+    vocab_groups = [mesh.get_group(i) for i, p in enumerate(lp)
+                    if p.is_shard(vocab)]
+    row_groups = [mesh.get_group(i) for i, p in enumerate(rows)
+                  if p.is_shard()]
+    _, lo = local_extent(logits.shape, mesh, lp, vocab)
+    n = math.prod(logits.shape[:-1])
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+
+    def loss(x, lab):
+        x = x.float()
+        with torch.no_grad():
+            m = x.amax(dim=-1)
+            for group in vocab_groups:
+                m = funcol.wait_tensor(funcol.all_reduce(m, "max", group))
+        s = torch.exp(x - m[..., None]).sum(dim=-1)
+        local = lab.long() - lo
+        inside = (local >= 0) & (local < x.shape[-1])
+        gold = torch.gather(x, -1, torch.where(inside, local, 0)[..., None])
+        gold = torch.where(inside, gold[..., 0], 0.0)
+        for group in vocab_groups:
+            s = AllReduce.apply(s, group)
+            gold = AllReduce.apply(gold, group)
+        total = torch.sum(m + torch.log(s) - gold)
+        for group in row_groups:
+            total = AllReduce.apply(total, group)
+        return total / n
+
+    return local_apply(loss, mesh, (logits, labels), (lp, rows),
+                       [Replicate()] * mesh.ndim)
 
 
 def train_loss(params, cfg: ArchConfig, batch: dict, *,

@@ -303,6 +303,32 @@ def local_apply(fn, mesh: DeviceMesh, tensors, placements, out):
                      redistribute_inputs=True)(*tensors)
 
 
+def local_extent(shape, mesh: DeviceMesh, placements, dim: int) -> tuple:
+    """(local size, global offset) of tensor dim `dim` on this rank, for a
+    DTensor of global `shape` placed by `placements` on `mesh`."""
+    return shard_extent(int(shape[dim]), tuple(mesh.shape),
+                        mesh.get_coordinate(), placements, dim)
+
+
+def shard_extent(size: int, mesh_shape, coordinate, placements,
+                 dim: int) -> tuple:
+    """(local size, global offset) of a dim of `size` at mesh `coordinate`
+    under `placements`, by DTensor's own reckoning, mesh dim by mesh dim
+    as `compute_local_shape_and_global_offset` goes: each `Shard` of the
+    dim splits it as `torch.chunk` does (chunks of ceil(size / n), the
+    last ranks' shorter or empty), so an uneven slice's offset is not
+    rank x local size. Plain ints: no tensor is read, so it serves on
+    fake tensors (where that function reads its offsets from tensors)."""
+    offset = 0
+    for n, r, p in zip(mesh_shape, coordinate, placements):
+        if p.is_shard(dim):
+            chunk = -(-size // n)
+            start = min(size, chunk * r)
+            size = min(size, start + chunk) - start
+            offset += start
+    return size, offset
+
+
 def host_int(t: torch.Tensor) -> int:
     """The value of a 0-d host tensor (a cache's write position), read
     outside any fake-tensor mode (the dry run keeps it real)."""

@@ -11,6 +11,8 @@ import os
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch import tree
 from repro_torch.ft.elastic import reshard_state, shrink_mesh
@@ -58,6 +60,57 @@ def _decode(case: dict, rules) -> dict:
                              for p in cache["k"].placements]}
 
 
+def _uneven(rules, dim: int, tensor_dim: int) -> list:
+    """Placements on `rules.dmesh` that cut tensor dim `tensor_dim` over
+    the tensor axis (unevenly where the axis does not divide it) and, with
+    `dim` >= 0, shard tensor dim `dim` over the data axis."""
+    mesh = rules.dmesh
+    out = [Replicate()] * mesh.ndim
+    out[mesh.mesh_dim_names.index(rules.tensor)] = Shard(tensor_dim)
+    if dim >= 0:
+        out[mesh.mesh_dim_names.index("data")] = Shard(dim)
+    return out
+
+
+def _vocab(case: dict, rules) -> dict:
+    """An odd vocabulary: the train loss and its gradients with the
+    rules' placements (which replicate a vocabulary the tensor axis does
+    not divide), then the lookup and the loss on a table and logits whose
+    vocabulary is cut unevenly over the tensor axis by hand."""
+    cfg = case["cfg"]
+    params = reshard_state(case["params"], rules.dmesh, tree_shardings(
+        rules, case["params"], M.logical_params(cfg, rules)))
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    batch = {k: rules.constrain(v, ("batch", None))
+             for k, v in case["batch"].items()}
+    with rules.context():
+        loss = M.train_loss(tree.unflatten(params, leaves), cfg, batch,
+                            rules=rules, chunk=case["chunk"])
+        grads = torch.autograd.grad(loss, leaves)
+    out = {"loss": float(_full(loss)),
+           "loss_is_dtensor": isinstance(loss, DTensor),
+           "grads": [_full(g).clone() for g in grads]}
+
+    table = distribute_tensor(case["table"], rules.dmesh,
+                              _uneven(rules, -1, 0)).requires_grad_()
+    with rules.context():
+        rows = L.embed({"table": table}, case["tokens"], rules)
+        (rows * case["rows_cot"]).sum().backward()
+    out["table_local_rows"] = table.to_local().shape[0]
+    out["rows"] = _full(rows).clone()
+    out["table_grad"] = _full(table.grad).clone()
+
+    logits = distribute_tensor(case["logits"], rules.dmesh,
+                               _uneven(rules, 0, 2)).requires_grad_()
+    with rules.context():
+        ce = M.cross_entropy(logits, case["labels"])
+        ce.backward()
+    out["logits_local_vocab"] = logits.to_local().shape[2]
+    out["ce"] = float(_full(ce))
+    out["ce_grad"] = _full(logits.grad).clone()
+    return out
+
+
 def _shrink(state, rules, cfg, tcfg) -> dict | None:
     """`reshard_state` of a placed state onto the mesh with one data row
     lost; rank 0 (which stays) returns the gathered leaves."""
@@ -93,6 +146,8 @@ def run(rank: int, world: int, payload: str, out: str, store: str) -> None:
                     got["before"] = tree.map(
                         lambda x: x.full_tensor().clone(), got["placed"])
                 del got["placed"]
+            elif case["kind"] == "vocab":
+                got = _vocab(case, rules)
             else:
                 got = _decode(case, rules)
             got["mode"] = L.attn_shard_mode(

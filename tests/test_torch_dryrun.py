@@ -12,11 +12,19 @@
   L x 2 x m x (k / 4) x k FLOPs and at least L all-reduces.
 * `count_params` / `active_params` / `model_flops` equal the
   reference's on its `jax.eval_shape` trees, all ten archs, exactly.
+* The mesh loss (`model.cross_entropy` on vocab-sharded DTensor logits)
+  makes no local tensor larger than the rank's logits shard, forward or
+  backward, on a fake 2 x 2 mesh, for a vocabulary the tensor axis
+  divides and one it cuts unevenly; a reduced train cell whose logits
+  dominate (vocabulary 8,192, T = 256) peaks below one global
+  microbatch's fp32 logits (8 of its local shards on this mesh), which
+  the loss used to build on every rank.
 * `--list` prints the reference's 66 cells.
 * `summarize` prints the reference's tables for the same records, every
   column but the limiter note, which names the card's units.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -29,7 +37,10 @@ import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._pytree import tree_flatten
 
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_arch as jget_arch
@@ -116,6 +127,60 @@ def test_reduced_decode_runs_on_multipod_mesh(world, out_dir, arch):
     record = _reduced_cell(world, out_dir, arch, "decode")
     _check(record, out_dir)
     assert record["model_flops_global"] == 2.0 * record["params_active"] * 8
+
+
+# --------------------------------------------------------- the mesh loss
+class _Largest(H.Analyzer):
+    """The analyzer, also noting the most elements of any local tensor
+    the step's ops make (DTensor's own shape inference on global-shape
+    fake tensors is no device's work, and is not counted)."""
+
+    largest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is not NotImplemented and not self._paused:
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    self.largest = max(self.largest, t.numel())
+        return out
+
+
+@pytest.mark.parametrize("vocab", [64, 63])
+def test_mesh_loss_holds_no_tensor_larger_than_its_shard(world, vocab):
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    with FakeTensorMode():
+        logits = distribute_tensor(torch.zeros(8, 16, vocab), mesh,
+                                   [Shard(0), Shard(2)], src_data_rank=None)
+        logits.requires_grad_()
+        labels = distribute_tensor(torch.zeros(8, 16, dtype=torch.int32),
+                                   mesh, [Shard(0), Replicate()],
+                                   src_data_rank=None)
+        with implicit_replication(), _Largest() as mode:
+            loss = M.cross_entropy(logits, labels)
+            loss.backward()
+    assert isinstance(loss, DTensor) and loss.shape == ()
+    assert all(p.is_replicate() for p in loss.placements)
+    assert logits.grad.placements == logits.placements
+    assert logits.to_local().shape == (4, 16, 32)
+    assert mode.largest == logits.to_local().numel()
+
+
+def test_reduced_train_peak_is_below_the_global_logits(world, out_dir):
+    cfg = dataclasses.replace(get_arch("smollm_360m").reduced(),
+                              vocab_size=8192)
+    shape = ShapeConfig("t", "train", 256, 16)
+    plan = CellPlan(train=TrainConfig(adamw=AdamWConfig(), microbatches=2,
+                                      attn_chunk=32))
+    record = D.run_cell("smollm_360m", shape.name, "multi", out_dir,
+                        skip_existing=False, device="cpu", mesh=world,
+                        cfg=cfg, shape=shape, plan=plan)
+    rows = shape.global_batch // plan.train.microbatches      # 8, global
+    local_shard = (rows // 4) * shape.seq_len * (cfg.vocab_size // 2) * 4
+    global_logits = rows * shape.seq_len * cfg.vocab_size * 4
+    assert global_logits == 8 * local_shard
+    assert record["memory_analysis"]["peak_live_bytes"] < global_logits
 
 
 # ----------------------------------------------------------- the analyzer

@@ -173,6 +173,37 @@ def test_local_shard_bytes_are_what_the_specs_imply(rules, arch):
                         for x in tree.leaves(placed))
 
 
+@pytest.mark.parametrize("size", [1, 3, 7, 16, 63, 257, 51865])
+def test_shard_extent_is_dtensor_split(size):
+    """`shard_extent` gives every rank the slice `torch.chunk` (DTensor's
+    split) gives it, and DTensor's own local shapes and offsets for a dim
+    cut over two mesh dims at once, at every coordinate of a (2, 3, 4)
+    mesh, the uneven and empty slices included."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        _compute_local_shape_and_global_offset)
+    rows = torch.arange(size)
+    for n in (2, 3, 4, 16):
+        for r, part in enumerate(torch.chunk(rows, n)):
+            want = (len(part), int(part[0]) if len(part) else None)
+            got = S.shard_extent(size, (n,), (r,), (Shard(0),), 0)
+            assert got[0] == want[0] and (not got[0] or got[1] == want[1])
+        assert sum(S.shard_extent(size, (n,), (r,), (Shard(0),), 0)[0]
+                   for r in range(n)) == size
+    mesh_shape = (2, 3, 4)
+    for placements in [(Shard(1), Replicate(), Shard(1)),
+                       (Shard(1), Shard(0), Replicate()),
+                       (Replicate(), Shard(1), Shard(1))]:
+        for coord in np.ndindex(*mesh_shape):
+            shape, offset = _compute_local_shape_and_global_offset(
+                (5, size), mesh_shape, list(coord), placements)
+            for dim in (0, 1):
+                got = S.shard_extent((5, size)[dim], mesh_shape, coord,
+                                     placements, dim)
+                assert got[0] == shape[dim], (placements, coord, dim)
+                assert not got[0] or got[1] == offset[dim]
+
+
 def _spec_leaves(specs):
     """The spec tuples of a spec tree in `tree.items` order."""
     if isinstance(specs, dict):
