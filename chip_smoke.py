@@ -163,7 +163,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    bytes (printed beside the earlier release's, `DRYRUN_BEFORE`), FLOPs,
    collective bytes by kind, dominant roofline term (the H100 SXM's
    datasheet constants) and seconds; fails if a cell does not fit the
-   card's 80e9 bytes.
+   card's 80e9 bytes;
+11. the port's example programs (`examples/torch_*.py`), run after 10a
+   and beside 10b's cells (host work in other processes): each imported
+   in this process and its `main(device="cuda")` called under
+   `contextlib.redirect_stdout`, its output echoed and its wall time
+   kept, the six kernels' launch counters set to 0 just before and read
+   just after. Fails if the repair demo does not print `byte-exact:
+   True` or launches other than one `gf256_matmul_bytes` for the encode
+   and one a helper and one `xor_reduce_words` a helper but the first of
+   each job (1 + 3 and 2); if the device sweep's difference is >= 1e-6 or
+   a batch ran on the host steppers; if the quickstart does not repair 4
+   blocks across 4 stripes or resume at step 61; if a model example
+   prints a loss that is not finite; if an EC example launches other than
+   one `gf256_matmul_bytes` a save and one a stripe that lost data (the
+   saves and the repairs counted at `ECCheckpointer`); or if any other
+   example launches one of the six kernels.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -171,9 +186,14 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -190,6 +210,7 @@ from torch.distributed.tensor import DTensor
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree  # noqa: E402
+from repro_torch.checkpoint import ECCheckpointer  # noqa: E402
 from repro_torch.core import executor, topology  # noqa: E402
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel  # noqa: E402
 from repro_torch.core.engine import dataplane, device_stepper  # noqa: E402
@@ -2386,14 +2407,147 @@ def dryrun_phase(records: list, device: str = "cuda", during=None) -> dict:
     return rec
 
 
-def mesh_phase(records: list, device: str = "cuda") -> dict:
+def mesh_phase(records: list, device: str = "cuda", then=None) -> dict:
     """Phase 10: 10b's cells started, 10a run beside them (the cells are
-    host work in other processes), then 10b's results; returns
-    {"launches": 10a's}."""
-    train = {}
-    dryrun_phase(records, device,
-                 during=lambda: train.update(mesh_train(records, device)))
-    return {"launches": train["launches"]}
+    host work in other processes), then `then()` (phase 11) beside them
+    too, then 10b's results; returns {"launches": 10a's, "then": what
+    `then()` returned}."""
+    train, after = {}, {}
+
+    def during():
+        train.update(mesh_train(records, device))
+        if then is not None:
+            after.update(then())
+
+    dryrun_phase(records, device, during=during)
+    return {"launches": train["launches"], "then": after}
+
+
+# phase 11: the port's example programs, in the order they were ported
+EXAMPLES = ("repair_demo", "device_sweep", "quickstart", "multinode_recovery",
+            "serve_demo", "sweep_demo", "vectorized_sweep")
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+EC_EXAMPLES = ("quickstart", "multinode_recovery")
+
+
+def load_example(name: str):
+    """`examples/torch_<name>.py` as a module of this process."""
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", EXAMPLES_DIR / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def checkpoint_calls():
+    """Counts `ECCheckpointer` saves and the stripes its loads repair
+    while active."""
+    calls = {"saves": 0, "stripes_repaired": 0}
+    save, load = ECCheckpointer.save, ECCheckpointer.load
+
+    def counted_save(self, *args, **kwargs):
+        calls["saves"] += 1
+        return save(self, *args, **kwargs)
+
+    def counted_load(self, *args, **kwargs):
+        state, report = load(self, *args, **kwargs)
+        calls["stripes_repaired"] += report.stripes_repaired
+        return state, report
+
+    ECCheckpointer.save, ECCheckpointer.load = counted_save, counted_load
+    try:
+        yield calls
+    finally:
+        ECCheckpointer.save, ECCheckpointer.load = save, load
+
+
+def run_example(name: str, device: str) -> dict:
+    """`main(device=device)` of one example, its output echoed, with the
+    launches, checkpoint calls and device-stepper routes of its run."""
+    mod = load_example(name)
+    cuda = torch.device(device).type == "cuda"
+    out = io.StringIO()
+    print(f"== phase 11: examples/torch_{name}.py ==")
+    with checkpoint_calls() as ckpt:
+        device_stepper.COUNTS.reset()
+        if cuda:
+            torch.cuda.synchronize()
+        reset_launches()
+        tic = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                mod.main(device=device)
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            print(out.getvalue(), end="")
+        wall_s = time.perf_counter() - tic
+        launches = read_launches()
+    return dict(lines=out.getvalue().splitlines(), wall_s=wall_s,
+                launches=launches, checkpoint=dict(ckpt),
+                stepper=device_stepper.COUNTS.as_dict())
+
+
+def expected_launches(name: str, run: dict) -> dict:
+    """The launches each kernel must show in the run of one example."""
+    want = {kname: 0 for kname in WRAPPERS}
+    if name == "repair_demo":
+        _, _, sc = demo_scenario()
+        plan = RepairSimulator(sc).run("bmf").plan
+        helpers = sum(len(job.helpers) for job in plan.jobs)
+        want["gf256_matmul_bytes"] = 1 + helpers
+        want["xor_reduce_words"] = helpers - len(plan.jobs)
+    elif name in EC_EXAMPLES:
+        want["gf256_matmul_bytes"] = (run["checkpoint"]["saves"]
+                                      + run["checkpoint"]["stripes_repaired"])
+    return want
+
+
+def examples_phase(records: list, device: str = "cuda") -> dict:
+    """Phase 11: every `examples/torch_*.py` through its `main`, checked
+    by its printed lines and its launches. Returns {name: launches}."""
+    start = time.perf_counter()
+    runs = {}
+    for name in EXAMPLES:
+        run = runs[name] = run_example(name, device)
+        lines, text = run["lines"], "\n".join(run["lines"])
+        if name == "repair_demo" and "byte-exact: True" not in text:
+            raise AssertionError("phase 11: the repair demo printed no "
+                                 "`byte-exact: True`")
+        if name == "device_sweep":
+            parity = [ln for ln in lines if ln.startswith("16-case sweep")]
+            diff = float(parity[0].rsplit("= ", 1)[1]) if parity else math.inf
+            run["max_rel_diff"] = diff
+            if not diff < 1e-6:
+                raise AssertionError(f"phase 11: device sweep differs from "
+                                     f"the serial engine by {diff}")
+            if run["stepper"]["host_batches"] or not \
+                    run["stepper"]["device_batches"]:
+                raise AssertionError(f"phase 11: device sweep routes "
+                                     f"{run['stepper']}")
+        if name == "quickstart" and not (
+                "  repaired 4 blocks across 4 stripes" in lines
+                and "  restored train state at step 61 — resuming" in lines):
+            raise AssertionError("phase 11: the quickstart did not repair 4 "
+                                 "blocks across 4 stripes and resume at 61")
+        if name in EC_EXAMPLES:
+            losses = [float(x) for ln in lines for x in re.findall(
+                r"loss (-?(?:\d+\.\d+|nan|inf))", ln)]
+            run["losses"] = losses
+            if not losses or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"phase 11: {name} losses {losses}")
+        want = expected_launches(name, run)
+        if run["launches"] != want:
+            raise AssertionError(f"phase 11: {name} launched "
+                                 f"{run['launches']}, not {want}")
+    rec = dict(phase="examples", device=device,
+               examples={name: {k: v for k, v in run.items() if k != "lines"}
+                         for name, run in runs.items()},
+               phase_s=time.perf_counter() - start)
+    print(json.dumps(rec))
+    records.append(rec)
+    return {name: run["launches"] for name, run in runs.items()}
 
 
 def main() -> None:
@@ -2529,7 +2683,8 @@ def main() -> None:
     train_launches = train["launches"]
     serve_launches = serve_phase(records)["launches"]["phase"]
     family_launches = family_phase(records)["launches"]
-    mesh_launches = mesh_phase(records)["launches"]
+    mesh = mesh_phase(records, then=lambda: examples_phase(records))
+    mesh_launches, examples_launches = mesh["launches"], mesh["then"]
     print(json.dumps({"launches": {"serial": serial_launches,
                                    **{f"batched_b{b}": lc for b, lc in
                                       zip(BATCHES, batch_launches)},
@@ -2537,7 +2692,8 @@ def main() -> None:
                                    "train_checkpoint": train_launches,
                                    "serve": serve_launches,
                                    "families": family_launches,
-                                   "mesh": mesh_launches}}))
+                                   "mesh": mesh_launches,
+                                   "examples": examples_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
     # B=4 (a new dict: the phases' records keep their own counts); the
     # plane kernels run on no path
@@ -2559,6 +2715,8 @@ def main() -> None:
             launches_serve=serve_launches[kname],
             launches_families=family_launches[kname],
             launches_mesh={k: v[kname] for k, v in mesh_launches.items()},
+            launches_examples={k: v[kname]
+                               for k, v in examples_launches.items()},
             max_abs_err=errs[kname], ms=t["ms"], ms_events=t["ms_events"],
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],

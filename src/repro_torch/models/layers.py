@@ -579,7 +579,13 @@ def moe(params, x, cfg, rules: MeshRules = NO_MESH,
     e, k = mcfg.num_experts, mcfg.top_k
     cap = min(int(math.ceil(t * k * mcfg.capacity_factor / e)), t)
 
-    logits = torch.einsum("btd,de->bte", x.float(), params["router"].float())
+    router = params["router"]
+    if isinstance(x, DTensor) or isinstance(router, DTensor):
+        # DTensor's einsum flattens (b, t) into a strided layout whose
+        # gradient bmm its cost search cannot place on fake tensors
+        logits = mesh_matmul(x.float(), router.float())
+    else:
+        logits = torch.einsum("btd,de->bte", x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (b,t,k)
     gate_vals = gate_vals / torch.clamp(

@@ -17,7 +17,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch import tree
+from repro_torch import tree as _tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +53,7 @@ def init_opt_state(params, dtype=torch.float32) -> dict:
     def zeros(p):
         return torch.zeros_like(p, dtype=dtype)
 
-    return {"m": tree.map(zeros, params), "v": tree.map(zeros, params)}
+    return {"m": _tree.map(zeros, params), "v": _tree.map(zeros, params)}
 
 
 def opt_logical(logical_params) -> dict:
@@ -61,9 +61,9 @@ def opt_logical(logical_params) -> dict:
     return {"m": logical_params, "v": logical_params}
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() ** 2)
-                          for g in tree.leaves(grads)))
+                          for g in _tree.leaves(tree)))
 
 
 def _local_global_norm(grads) -> torch.Tensor:
@@ -71,7 +71,7 @@ def _local_global_norm(grads) -> torch.Tensor:
     rank's sum of squares, divided by the number of ranks that hold the
     same shard, all-reduced over each mesh dim in turn (the same sum in
     another order). A replicated 0-d DTensor."""
-    leaves = tree.leaves(grads)
+    leaves = _tree.leaves(grads)
     mesh = leaves[0].device_mesh
     total = None
     for g in leaves:
@@ -95,7 +95,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt_state, step):
     DTensor leaves (a mesh) are updated shard by shard: the update is
     elementwise, so each rank runs it on its own shards, and only the
     global norm crosses ranks."""
-    if isinstance(tree.leaves(params)[0], DTensor):
+    if isinstance(_tree.leaves(params)[0], DTensor):
         return _adamw_update_local(cfg, params, grads, opt_state, step)
     return _adamw(cfg, params, grads, opt_state, step, global_norm(grads))
 
@@ -116,18 +116,18 @@ def _adamw(cfg: AdamWConfig, params, grads, opt_state, step, gnorm):
         p_new = pf - lr * (update + cfg.weight_decay * pf)
         return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
-    out = tree.map(upd, params, grads, opt_state["m"], opt_state["v"])
+    out = _tree.map(upd, params, grads, opt_state["m"], opt_state["v"])
     new_params, new_m, new_v = (_pick(out, i) for i in range(3))
     return new_params, {"m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
 
 
 def _adamw_update_local(cfg, params, grads, opt_state, step):
     gnorm = _local_global_norm(grads)
-    local = {"p": tree.map(DTensor.to_local, params),
-             "g": tree.map(lambda g, p: g.redistribute(
+    local = {"p": _tree.map(DTensor.to_local, params),
+             "g": _tree.map(lambda g, p: g.redistribute(
                  p.device_mesh, p.placements).to_local(), grads, params),
-             "m": tree.map(DTensor.to_local, opt_state["m"]),
-             "v": tree.map(DTensor.to_local, opt_state["v"])}
+             "m": _tree.map(DTensor.to_local, opt_state["m"]),
+             "v": _tree.map(DTensor.to_local, opt_state["v"])}
     # the step and the norm are replicated scalars: every rank holds them
     new_p, new_opt, info = _adamw(
         cfg, local["p"], local["g"], {"m": local["m"], "v": local["v"]},
@@ -141,9 +141,9 @@ def _adamw_update_local(cfg, params, grads, opt_state, step):
         return DTensor.from_local(x, like.device_mesh, like.placements,
                                   run_check=False)
 
-    return (tree.map(wrap, new_p, params),
-            {"m": tree.map(wrap, new_opt["m"], opt_state["m"]),
-             "v": tree.map(wrap, new_opt["v"], opt_state["v"])}, info)
+    return (_tree.map(wrap, new_p, params),
+            {"m": _tree.map(wrap, new_opt["m"], opt_state["m"]),
+             "v": _tree.map(wrap, new_opt["v"], opt_state["v"])}, info)
 
 
 def _pick(out, i: int):
@@ -155,7 +155,7 @@ def _pick(out, i: int):
 
 # ------------------------------------------------- int8 EF gradient compress
 def init_ef_state(params):
-    return tree.map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+    return _tree.map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                     params)
 
 
@@ -171,5 +171,5 @@ def compress_grads(grads, ef_state):
         deq = q8.float() * scale
         return deq.to(g.dtype), total - deq
 
-    out = tree.map(q, grads, ef_state)
+    out = _tree.map(q, grads, ef_state)
     return _pick(out, 0), _pick(out, 1)

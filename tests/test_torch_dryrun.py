@@ -270,6 +270,36 @@ def _run(*args):
     return out.stdout
 
 
+_GROK_ONE_LAYER = """
+import dataclasses, json, sys
+from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun as D
+cfg = dataclasses.replace(get_arch("grok1_314b"), num_layers=1)
+rec = D.run_cell("grok1_314b", "train_4k", "single", sys.argv[1],
+                 skip_existing=False, device="cpu", cfg=cfg)
+print(json.dumps(rec))
+"""
+
+
+def test_grok_router_trains_on_the_production_mesh(tmp_path):
+    """grok1_314b at its full widths, one layer deep, one train_4k step on
+    the fake (16, 16) world: the MoE router's product on DTensors goes
+    through `sharding.mesh_matmul`. As a DTensor einsum, its gradient
+    bmm ((1, 6144, 131072) x (1, 131072, 8)) failed DTensor's cost
+    search on fake tensors (`aten._local_scalar_dense`). In its own
+    process: the 256-rank fake world replaces this module's."""
+    env = {**os.environ, "PYTHONPATH": "src", "JAX_PLATFORMS": "cpu"}
+    out = subprocess.run([sys.executable, "-c", _GROK_ONE_LAYER,
+                          str(tmp_path)], capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    record = json.loads(out.stdout.splitlines()[-1])
+    assert record["ok"] and record["chips"] == 256 and record["fits"]
+    h = record["hlo_analysis"]
+    assert h["flops_per_device"] > 0 and h["collective_bytes_per_device"] > 0
+    assert h["collective_counts"].get("all-reduce", 0) > 0
+
+
 def test_list_matches_reference():
     got = _run("repro_torch.launch.dryrun", "--list")
     assert got == _run("repro.launch.dryrun", "--list")

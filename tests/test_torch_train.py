@@ -106,6 +106,18 @@ def test_adamw_step_matches_reference(opt_dtype, step, clipped):
     assert np.array_equal(_np(p["a"]), _np(jp["a"]))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_global_norm_keyword_call_matches_reference(dtype):
+    """`global_norm(tree=...)`: the reference's parameter name."""
+    dt_j, dt_t = ((jnp.float32, torch.float32) if dtype == "float32"
+                  else (jnp.bfloat16, torch.bfloat16))
+    jg, g = _to(_draw(np.random.default_rng(3), SHAPES), dt_j, dt_t)
+    got = opt.global_norm(tree=g)
+    want = jopt.global_norm(tree=jg)
+    assert got.dtype == torch.float32 and got.ndim == 0
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
 def test_lr_schedule_matches_reference():
     cfg = opt.AdamWConfig(peak_lr=1e-3, warmup_steps=10, decay_steps=100)
     jcfg = jopt.AdamWConfig(peak_lr=1e-3, warmup_steps=10, decay_steps=100)
