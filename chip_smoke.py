@@ -7,7 +7,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 0. the card's name and power limit (`nvidia-smi`), the torch version;
    raises when no CUDA device is visible;
 1. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, sm_90a);
-2. hold each of the six kernels against its plain PyTorch version on the
+2. hold each of the eight kernels against its plain PyTorch version on the
    card, bit-exact, at the CPU-test shapes and the main paths' shapes, and
    time both beside the least time the card could take for the same work
    and, where one exists, one PyTorch call computing the same function
@@ -25,7 +25,23 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    in, 1.81e9 out); the two-row folds (`xor_reduce_words`,
    the grouped fold at G=4 K=2) and their `torch.bitwise_xor` yardstick
    in turns, each by the profiler (the means of two windows: fold,
-   yardstick, yardstick, fold) and the yardstick by events too;
+   yardstick, yardstick, fold) and the yardstick by events too; the
+   sweep's event loops (`round_events_kernel`, `pipeline_events_kernel`,
+   from `jax_stepper.py`'s jitted programs): first the shared-memory
+   sizes of `event_loop.py` against the source's, then hand-made batches
+   from a seeded generator (48 cases on 14 nodes: epochs crossed, traces
+   cycled and clamped, static networks, R = 1 and 6 rounds with idle
+   rounds, trees of depth 0, 1, random and a chain, a case without an
+   edge) that must give the plain version's end clocks and step counts,
+   a 2-epoch live horizon that must raise `EpochHorizonError` and a
+   guard of 3 steps that must raise `RuntimeError` on both routes; then
+   one device sweep of each phase-6 suite, recording the engines' largest
+   batch of each wrapper at R = 1 and R > 1, each held the same way and
+   timed (the kernel by the profiler, the plain version 2 calls by
+   events) beside its bound (the epochs each case reached, the tables
+   and outputs once; float64 operations at 34e12/s), its serial chain of
+   steps and µs a step; `library_ms` is null (no PyTorch call runs an
+   event loop);
 3. the serial repair path at full size: the repair-demo scenario (RS(6,3)
    on the Aliyun Table III matrix under markov churn, 128 MB chunks)
    planned and simulated for every single-failure scheme, a 128 MiB-per-
@@ -52,16 +68,21 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    stress suite (512 single-failure RS(14,10) 1024 MB cases frozen to
    256-epoch traces) and a live suite (128 such cases of 256 MB chunks
    under markov churn, four schemes), each through `executor="device"`
-   (the torch device
-   stepper on the card) and `executor="vectorized"` (numpy on the host);
-   a frozen suite is built once and replayed by every run, the live one
+   (the device stepper on the card: its event loops in the two
+   event-loop kernels) and `executor="vectorized"` (numpy on the host);
+   a frozen suite is built once (in phase 2) and replayed by every run,
+   the live one
    is built anew for each run (its epochs are sampled inside the run).
    Fails if a case's rounds, relay hops or time (1e-6 rtol) differ
    between the two, if any batch ran on the host steppers, if the live
    suite never grew its epoch horizon, if `verify_bytes=16` verifies not
    every pair, or if the sweep's launches (counters set to 0 just before,
    read just after) are not one `gf256_scale_bytes` and one
-   `xor_reduce_groups_words` per data-plane round; prints wall time and
+   `xor_reduce_groups_words` per data-plane round and one event-loop
+   kernel per device engine call (`COUNTS.round_calls`,
+   `pipeline_calls`), at least one a suite; the event loops' plain
+   versions then run the device sweep once, held to the vectorized
+   engine and traced (wall, idle share, host syncs), not timed; prints wall time and
    cases/s of both executors (median of 3, in turns), host syncs, horizon
    doublings, and one torch.profiler trace of each device sweep (device
    busy time, idle share, top kernels);
@@ -109,7 +130,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    reported only; the greedy tokens equal wherever the card's top-2
    margin exceeds twice the tolerance (the tolerances and their reasons
    are at `SERVE_EQUIV` / `SERVE_CPU`);
-   8e. the six kernels' launch counters, set to 0 before 8a and read
+   8e. the eight kernels' launch counters, set to 0 before 8a and read
    after it and after 8d: serving launches none of them;
 9. the other model families (`models/{rwkv6,mamba2,zamba2,whisper}.py`,
    their serve steps and the trainer; plain PyTorch on the card, no kernel
@@ -139,7 +160,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    T=1,024; its full depth's params, gradients and moments need 8.4e10
    bytes): finite losses, changed params, step times, peak memory and one
    more step traced;
-   9e. the six kernels' launch counters, set to 0 before 9a and read
+   9e. the eight kernels' launch counters, set to 0 before 9a and read
    after 9d: none;
 10. the multi-device half (`models/sharding.py` on DTensors,
    `launch/mesh.py`, `ft/elastic.py`, `launch/dryrun.py`):
@@ -168,7 +189,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    and beside 10b's cells (host work in other processes): each imported
    in this process and its `main(device="cuda")` called under
    `contextlib.redirect_stdout`, its output echoed and its wall time
-   kept, the six kernels' launch counters set to 0 just before and read
+   kept, the eight kernels' launch counters set to 0 just before and read
    just after. Fails if the repair demo does not print `byte-exact:
    True` or launches other than one `gf256_matmul_bytes` for the encode
    and one a helper and one `xor_reduce_words` a helper but the first of
@@ -178,7 +199,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    prints a loss that is not finite; if an EC example launches other than
    one `gf256_matmul_bytes` a save and one a stripe that lost data (the
    saves and the repairs counted at `ECCheckpointer`); or if any other
-   example launches one of the six kernels.
+   example launches one of the eight kernels (the device sweep launches
+   one event-loop kernel per device engine call).
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
@@ -188,6 +210,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import io
 import json
@@ -222,7 +245,7 @@ from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.ec import bitplane, gf256  # noqa: E402
 from repro_torch.ec import stripe as stripe_lib  # noqa: E402
 from repro_torch.ec.rs import RSCode  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import event_loop, ops, ref  # noqa: E402
 from repro_torch.kernels.build import load_library  # noqa: E402
 from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
                                               gf256_matmul_planes,
@@ -440,13 +463,23 @@ KERNELS = {
     "gf256_scale_bytes": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/gf256_matmul.cu",
         replaces="src/repro/kernels/gf256_matmul.py:74"),
+    # the jitted device programs of the JAX package's sweep (not Pallas)
+    "round_events": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/event_loop.cu",
+        replaces="src/repro/core/engine/jax_stepper.py:170"),
+    "pipeline_events": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/event_loop.cu",
+        replaces="src/repro/core/engine/jax_stepper.py:241"),
 }
 WRAPPERS = {"gf256_matmul_planes": gf256_matmul_planes,
             "xor_reduce_words": xor_reduce_words,
             "gf256_scale_planes": gf256_scale_planes,
             "xor_reduce_groups_words": xor_reduce_groups_words,
             "gf256_matmul_bytes": gf256_matmul_bytes,
-            "gf256_scale_bytes": gf256_scale_bytes}
+            "gf256_scale_bytes": gf256_scale_bytes,
+            "round_events": event_loop.round_events,
+            "pipeline_events": event_loop.pipeline_events}
+EVENT_LOOPS = ("round_events", "pipeline_events")
 
 
 def _counted(fn):
@@ -1350,8 +1383,7 @@ def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
     counts = device_stepper.COUNTS
     p = SWEEP_SUITES[name]
     start = time.perf_counter()
-    frozen = make_suite(name) if p["epochs"] else None
-    build_s = time.perf_counter() - start
+    frozen, build_s = frozen_suite(name) if p["epochs"] else (None, 0.0)
 
     def suite():
         return frozen or make_suite(name)
@@ -1368,10 +1400,13 @@ def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
     bv = dev.byte_verification
     if not bv.verified or len({i for i, _ in bv.checked}) != SWEEP_VERIFY:
         raise AssertionError(f"{name}: byte verification {bv}")
-    # one data-plane call: one premultiply, one segment fold per round
+    # one data-plane call: one premultiply, one segment fold per round;
+    # one event-loop launch per engine call
     want = {k: 0 for k in WRAPPERS}
-    want.update(gf256_scale_bytes=1, xor_reduce_groups_words=bv.rounds)
-    if launches != want:
+    want.update(gf256_scale_bytes=1, xor_reduce_groups_words=bv.rounds,
+                round_events=checked["round_calls"],
+                pipeline_events=checked["pipeline_calls"])
+    if launches != want or not sum(launches[k] for k in EVENT_LOOPS):
         raise AssertionError(f"{name}: sweep launches {launches} != {want}")
     if checked["host_batches"] or not checked["device_batches"]:
         raise AssertionError(f"{name}: batch routes {checked}")
@@ -1402,6 +1437,22 @@ def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
     if counts.host_batches:
         raise AssertionError(f"{name}: host batches {counts}")
     prof.update(counts=counts.as_dict())
+    # the event loops' plain versions on the card, once: held to the
+    # vectorized engine, traced, not timed
+    runs_on = suite()
+    counts.reset()
+    reset_launches()
+    with plain_event_loops():
+        plain_out = []
+        plain = profile_device(
+            lambda: plain_out.append(run_sweep(runs_on, executor="device",
+                                               device=device)),
+            f"profile_sweep_{name}_plain")
+    plain.update(counts=counts.as_dict(),
+                 max_rel_err=sweep_max_rel_err(plain_out[0], vec, name))
+    if counts.host_batches or any(read_launches()[k] for k in EVENT_LOOPS):
+        raise AssertionError(f"{name}: the plain route took {counts} and "
+                             f"launched {read_launches()}")
     cases = len(vec.cases)
     wall = {ex: statistics.median(w) for ex, w in walls.items()}
     rec = dict(phase="sweep", suite=name, cases=cases,
@@ -1418,7 +1469,7 @@ def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
                byte_verification=dict(pairs=len(bv.checked), nbytes=bv.nbytes,
                                       verified=bv.verified,
                                       rounds=bv.rounds),
-               launches=launches, profile=prof)
+               launches=launches, profile=prof, plain_route=plain)
     print(json.dumps(rec))
     records.append(rec)
     return launches
@@ -1431,6 +1482,306 @@ def sweep_phase(records: list, device: str = "cuda") -> dict:
         for k, n in sweep_suite(records, name, device).items():
             total[k] += n
     return total
+
+
+# ------------------------------------------------------- phase 2: event loops
+# The sweep's event loops held on the card: hand-made batches from a seeded
+# generator, then the largest batch each wrapper got in one device sweep of
+# each of phase 6's suites. The kernels' float64 work has no entry in the
+# on-chip guide's table: FP64_PER_S is the H100 SXM data sheet's float64
+# rate outside the tensor cores.
+FP64_PER_S = 34e12
+EVENT_GUARD = 100_000              # device_stepper._GUARD
+_FROZEN: dict = {}                 # phase 6's frozen suites, built once
+
+
+def frozen_suite(name: str):
+    """A trace-frozen phase-6 suite, built at its first use and replayed
+    after; returns (suite, seconds the build took)."""
+    if name not in _FROZEN:
+        tic = time.perf_counter()
+        _FROZEN[name] = (make_suite(name), time.perf_counter() - tic)
+    return _FROZEN[name]
+
+
+def synthetic_ctx(rng, B: int, N: int, E: int, M: int, *, interval,
+                  cycle, can_ovf, device="cuda") -> event_loop.EventCtx:
+    """A batch context: E epochs of random bandwidth (3-30 MB/s) a case,
+    chunks of 8-64 MB, per-case epoch lengths (inf = a static network),
+    trace cycling or clamping, ingress parameters and Dirichlet fan-in
+    shares."""
+    stack = rng.uniform(3.0, 30.0, (B, E, N, N))
+    shares = np.zeros((B, N, M + 1, M))
+    shares[:, :, :, 0] = 1.0
+    for m in range(2, M + 1):
+        shares[:, :, m, :m] = rng.dirichlet(np.ones(m), (B, N))
+    f64 = dict(dtype=torch.float64, device=device)
+    return event_loop.EventCtx(
+        stack=torch.tensor(stack, **f64),
+        interval=torch.tensor(np.broadcast_to(interval, (B,)), **f64),
+        num_ep=torch.full((B,), E, dtype=torch.int64, device=device),
+        cycle=torch.tensor(np.broadcast_to(cycle, (B,)), device=device),
+        can_ovf=torch.tensor(np.broadcast_to(can_ovf, (B,)), device=device),
+        chunk=torch.tensor(rng.uniform(8.0, 64.0, B), **f64),
+        degrade=torch.tensor(rng.uniform(0.0, 0.3, B), **f64),
+        floor=torch.tensor(rng.uniform(0.2, 0.6, B), **f64),
+        duplex=torch.tensor(rng.uniform(0.5, 1.0, B), **f64),
+        shares=torch.tensor(shares, **f64))
+
+
+def synthetic_rounds(rng, B: int, R: int, T: int, H: int, N: int,
+                     idle: float = 0.3):
+    """(B, R, T, H) hop tables of random paths over distinct nodes, hop
+    counts 1..H, and a share `idle` of (case, round) rows with no transfer
+    at all (padding transfers inside a row too)."""
+    paths = np.argsort(rng.random((B, R, T, N)), axis=-1)[..., :H + 1]
+    n_hops = rng.integers(0, H + 1, (B, R, T))
+    n_hops[rng.random((B, R)) < idle] = 0
+    return paths[..., :-1].copy(), paths[..., 1:].copy(), n_hops
+
+
+def synthetic_trees(rng, B: int, N: int, shape: str):
+    """(B, N - 1) edge tables of random repair trees over nodes 0..N-1 (0
+    the root): "flat" (every node's parent the root: depth 1), "zero"
+    (the same at depth 0: no level is scanned), "deep" (a chain), "mixed"
+    (a random recursive tree), with some edges missing and one case with
+    no edge."""
+    E = N - 1
+    child = np.tile(np.arange(1, N), (B, 1))
+    parent = np.zeros((B, E), dtype=np.int64)
+    for b in range(B):
+        for e, c in enumerate(range(1, N)):
+            parent[b, e] = {"flat": 0, "zero": 0, "deep": c - 1}.get(
+                shape, int(rng.integers(0, c)))
+    depth = np.zeros((B, E), dtype=np.int64)
+    for e in range(E):                  # parents come before their children
+        depth[:, e] = np.where(parent[:, e] == 0, 1,
+                               depth[np.arange(B), np.maximum(parent[:, e] - 1,
+                                                               0)] + 1)
+    if shape == "zero":
+        depth[:] = 0
+    valid = rng.random((B, E)) < 0.85
+    valid[0] = False
+    return child, parent, depth, valid
+
+
+def event_steps(packed: np.ndarray) -> int:
+    """The serial chain: for each round the most steps any case took."""
+    return int(packed[event_loop.STEPS].max(axis=1, initial=0).sum())
+
+
+def event_bound(name: str, ctx, tables, packed: np.ndarray,
+                peaks: dict) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes, ops) of one call on this run's data:
+    every table, parameter and output once, the share table once, and of
+    the epoch stack only the epochs each case reached (through the clock
+    it ended at); the float64 operations of the steps each case took
+    (~10 a transfer or 12 an edge, 4 a node, 2 an edge a depth level)."""
+    _, E, N, _ = ctx.stack.shape
+    t_end = packed[event_loop.T_END][-1]
+    interval = ctx.interval.cpu().numpy()
+    num_ep = ctx.num_ep.cpu().numpy()
+    with np.errstate(invalid="ignore"):
+        reached = np.where(np.isfinite(interval),
+                           np.floor(t_end / interval) + 1, 1)
+    reached = np.minimum(np.minimum(reached, num_ep), E).sum()
+    small = sum(getattr(ctx, f).numel() * getattr(ctx, f).element_size()
+                for f in ("interval", "num_ep", "cycle", "can_ovf", "chunk",
+                          "degrade", "floor", "duplex", "shares"))
+    nbytes = (reached * N * N * 8 + small + sum(np.asarray(a).size * 4
+                                                for a in tables)
+              + 8 * packed.shape[2] + packed.size * 8)
+    steps = packed[event_loop.STEPS].sum()
+    if name == "round_events":
+        ops = steps * (10 * tables[0].shape[2] + 4 * N)
+    else:
+        levels = int(np.max(tables[2], initial=0))
+        ops = steps * (12 * tables[0].shape[1] + 4 * N
+                       + 2 * tables[0].shape[1] * levels)
+    t_bytes = nbytes / peaks["mem_bytes_per_s"] * 1e3
+    t_ops = ops / FP64_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            ) + (float(nbytes), float(ops))
+
+
+def hold_event_loop(name: str, ctx, tables, t0, label: str, *,
+                    guard: int = EVENT_GUARD, expect=None, peaks=None,
+                    timed: bool = False) -> dict:
+    """The kernel against its plain version on the card, on the same
+    inputs: equal end clocks (max abs and rel err printed) and equal step
+    counts, no flag; or, with `expect` an exception type, both must raise
+    it. With `timed`, also their times, the bound and µs a step."""
+    wrapper = WRAPPERS[name]
+
+    def run(use_kernel=True):
+        return wrapper(ctx, *tables, t0, guard=guard, use_kernel=use_kernel)
+
+    got = run().cpu().numpy()
+    want = run(False).cpu().numpy()
+    rec = dict(kernel=name, shape=label, cases=int(got.shape[2]),
+               rounds=int(got.shape[1]))
+    if expect is not None:
+        raised = []
+        for packed in (got, want):
+            try:
+                event_loop.check_flags(packed[event_loop.FLAGS])
+                raised.append(None)
+            except expect as e:
+                raised.append(type(e).__name__)
+        if raised != [expect.__name__] * 2:
+            raise AssertionError(f"{name} {label}: kernel and plain raised "
+                                 f"{raised}, not {expect.__name__}")
+        rec.update(raised=expect.__name__, max_abs_err=0.0)
+        print(json.dumps(rec))
+        return rec
+    if got[event_loop.FLAGS].any() or want[event_loop.FLAGS].any():
+        raise AssertionError(f"{name} {label}: flags {got[2]} / {want[2]}")
+    err = np.abs(got[event_loop.T_END] - want[event_loop.T_END])
+    rel = err / np.maximum(np.abs(want[event_loop.T_END]), 1e-300)
+    rec.update(max_abs_err=float(err.max(initial=0.0)),
+               max_rel_err=float(rel.max(initial=0.0)),
+               steps=event_steps(want),
+               steps_equal=bool(np.array_equal(got[event_loop.STEPS],
+                                               want[event_loop.STEPS])))
+    if not rec["steps_equal"] or not rec["max_rel_err"] <= 1e-6:
+        raise AssertionError(f"{name} {label}: kernel and plain differ: "
+                             f"{rec}")
+    if timed:
+        bms, by, nbytes, ops = event_bound(name, ctx, tables, want, peaks)
+        rec.update(**kernel_times(run, f"{name}_kernel"),
+                   plain_ms=cuda_ms(lambda: run(False), reps=2),
+                   bound_ms=bms, bound_by=by, bytes=nbytes, fp64_ops=ops,
+                   library_ms=None)   # no PyTorch call runs an event loop
+        rec["us_per_step"] = rec["ms"] * 1e3 / max(rec["steps"], 1)
+    print(json.dumps(rec))
+    return rec
+
+
+@contextlib.contextmanager
+def recorded_event_loops():
+    """While active, keeps for each event-loop wrapper and each of R = 1
+    and R > 1 the device engines' call of the most (cases x rounds x
+    transfers or edges) that ran to its end, its inputs copied:
+    {(name, R > 1): (ctx, tables, t0)}."""
+    kept: dict = {}
+    sizes: dict = {}
+    original = device_stepper._EngineBase._events
+
+    def events(self, loop, *tables, t0):
+        t_end = original(self, loop, *tables, t0=t0)   # raises on a flag
+        shape = np.shape(tables[0])
+        key = (loop.__name__, len(shape) == 4 and shape[1] > 1)
+        if math.prod(shape) > sizes.get(key, -1):
+            sizes[key] = math.prod(shape)
+            kept[key] = (self.ctx, tuple(np.array(a) for a in tables),
+                         np.array(t0, dtype=float))
+        return t_end
+
+    device_stepper._EngineBase._events = events
+    try:
+        yield kept
+    finally:
+        device_stepper._EngineBase._events = original
+
+
+def event_loop_checks(records: list, peaks: dict,
+                      device: str = "cuda") -> dict:
+    """Phase 2 for the event loops; returns each kernel's timed record."""
+    if device == "cuda":
+        lib = load_library().lib
+        for n, m in ((0, 1), (13, 14), (300, 70)):
+            if (lib.round_events_smem(n, m)
+                    != event_loop.round_smem_bytes(n, m)
+                    or lib.pipeline_events_smem(n, m)
+                    != event_loop.pipeline_smem_bytes(n, m)):
+                raise AssertionError("event_loop.py's shared-memory sizes "
+                                     "differ from event_loop.cu's")
+    rng = np.random.default_rng(17)
+    B, N = 48, 14
+    hand = []
+    # epochs crossed: per-case intervals 0.2-2 s over 16 epochs, the
+    # trace cycled (even cases) or clamped (odd) past its end, and static
+    # networks (interval inf) in a third of the cases
+    interval = rng.uniform(0.2, 2.0, B)
+    interval[::3] = np.inf
+    cycle = np.arange(B) % 2 == 0
+    for R, T, H in ((1, 13, 1), (1, 9, 4), (6, 12, 3)):
+        ctx = synthetic_ctx(rng, B, N, 16, 6, interval=interval, cycle=cycle,
+                            can_ovf=False, device=device)
+        tables = synthetic_rounds(rng, B, R, T, H, N)
+        t0 = rng.uniform(0.0, 5.0, B)
+        hand.append(hold_event_loop("round_events", ctx, tables, t0,
+                                    f"hand R={R} T={T} H={H}"))
+    for shape in ("zero", "flat", "mixed", "deep"):
+        ctx = synthetic_ctx(rng, B, N, 16, N - 1, interval=interval,
+                            cycle=cycle, can_ovf=False, device=device)
+        tables = synthetic_trees(rng, B, N, shape)
+        hand.append(hold_event_loop("pipeline_events", ctx, tables,
+                                    rng.uniform(0.0, 5.0, B),
+                                    f"hand tree {shape}"))
+    # a live horizon of 2 short epochs: some case outruns it
+    ctx = synthetic_ctx(rng, B, N, 2, 6, interval=0.05, cycle=False,
+                        can_ovf=True, device=device)
+    hand.append(hold_event_loop(
+        "round_events", ctx, synthetic_rounds(rng, B, 3, 12, 3, N, idle=0.0),
+        np.zeros(B), "hand horizon overflow",
+        expect=event_loop.EpochHorizonError))
+    hand.append(hold_event_loop(
+        "pipeline_events", ctx, synthetic_trees(rng, B, N, "mixed"),
+        np.zeros(B), "hand horizon overflow",
+        expect=event_loop.EpochHorizonError))
+    # a guard of 3 steps
+    ctx = synthetic_ctx(rng, B, N, 16, 6, interval=0.05, cycle=True,
+                        can_ovf=False, device=device)
+    hand.append(hold_event_loop(
+        "round_events", ctx, synthetic_rounds(rng, B, 2, 12, 3, N, idle=0.0),
+        np.zeros(B), "hand guard 3", guard=3, expect=RuntimeError))
+    hand.append(hold_event_loop(
+        "pipeline_events", ctx, synthetic_trees(rng, B, N, "deep"),
+        np.zeros(B), "hand guard 3", guard=3, expect=RuntimeError))
+    records.extend(hand)
+
+    timed: dict = {}
+    for name in SWEEP_SUITES:
+        tic = time.perf_counter()
+        suite = (frozen_suite(name)[0] if SWEEP_SUITES[name]["epochs"]
+                 else make_suite(name))
+        with recorded_event_loops() as kept:
+            run_sweep(suite, executor="device", device=device)
+        torch.cuda.synchronize()
+        # R > 1 first: a whole plan's rounds are the kernel's longest work
+        for (kname, multi), (ctx, tables, t0) in sorted(kept.items(),
+                                                        reverse=True):
+            rec = hold_event_loop(
+                kname, ctx, tables, t0,
+                f"{name} largest batch, R {'> 1' if multi else '= 1'}",
+                peaks=peaks, timed=True)
+            rec.update(suite=name, record_s=time.perf_counter() - tic)
+            records.append(rec)
+            timed.setdefault(kname, rec)
+        del kept
+        torch.cuda.empty_cache()
+    missing = set(EVENT_LOOPS) - set(timed)
+    if missing:
+        raise AssertionError(f"phase 6's suites called no {missing}")
+    return timed
+
+
+@contextlib.contextmanager
+def plain_event_loops():
+    """While active, device engines run the event loops' plain torch
+    versions (`use_kernel=False`) instead of the kernels."""
+    factories = (device_stepper.make_round_engine,
+                 device_stepper.make_pipeline_engine)
+    device_stepper.make_round_engine = functools.partial(factories[0],
+                                                         use_kernel=False)
+    device_stepper.make_pipeline_engine = functools.partial(
+        factories[1], use_kernel=False)
+    try:
+        yield
+    finally:
+        (device_stepper.make_round_engine,
+         device_stepper.make_pipeline_engine) = factories
 
 
 def lost_data_stripes(num_stripes: int, lost: tuple) -> int:
@@ -2110,7 +2461,7 @@ def family_train(name: str, spec: dict, device) -> dict:
 
 def family_phase(records: list, device: str = "cuda") -> dict:
     """Phase 9: 9a zamba2_7b served at full width; 9b decode == forward at
-    full width; 9c card against CPU in fp32; 9d train steps; 9e the six
+    full width; 9c card against CPU in fp32; 9d train steps; 9e the eight
     kernels' launches over all of it (none)."""
     start = time.perf_counter()
     reset_launches()
@@ -2501,6 +2852,9 @@ def expected_launches(name: str, run: dict) -> dict:
     elif name in EC_EXAMPLES:
         want["gf256_matmul_bytes"] = (run["checkpoint"]["saves"]
                                       + run["checkpoint"]["stripes_repaired"])
+    # one event-loop launch per device engine call (the device sweep)
+    want["round_events"] = run["stepper"]["round_calls"]
+    want["pipeline_events"] = run["stepper"]["pipeline_calls"]
     return want
 
 
@@ -2672,6 +3026,7 @@ def main() -> None:
     print(json.dumps(checkpoint_encode))
     records.append(checkpoint_encode)
     torch.cuda.empty_cache()
+    timed.update(event_loop_checks(records, peaks))
     for rec in records[1:]:
         errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
 
@@ -2695,12 +3050,13 @@ def main() -> None:
                                    "mesh": mesh_launches,
                                    "examples": examples_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
-    # B=4 (a new dict: the phases' records keep their own counts); the
-    # plane kernels run on no path
+    # B=4, the event loops' in phase 6 (a new dict: the phases' records
+    # keep their own counts); the plane kernels run on no path
     launches = {**serial_launches,
                 **{k: batch_launches[0][k] for k in ("gf256_scale_planes",
                                                      "gf256_scale_bytes",
-                                                     "xor_reduce_groups_words")}}
+                                                     "xor_reduce_groups_words")},
+                **{k: sweep_launches[k] for k in EVENT_LOOPS}}
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -2721,7 +3077,9 @@ def main() -> None:
             ms_single=t["ms_single"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"],
-            library_ms_events=t.get("library_ms_events"), shape=t["shape"]))
+            library_ms_events=t.get("library_ms_events"), shape=t["shape"],
+            **({k: t[k] for k in ("steps", "us_per_step", "max_rel_err")}
+               if kname in EVENT_LOOPS else {})))
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.json:

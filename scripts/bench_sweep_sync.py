@@ -3,10 +3,12 @@
     python3 scripts/bench_sweep_sync.py [--every 1 8 64] [--repeats 3]
                                         [--device cuda] [--json PATH]
 
-The device stepper (`repro_torch.core.engine.device_stepper`) reads its
-event loop's completion and overflow flags on the host once every
-`_SYNC_EVERY` steps. This script runs the suites of `chip_smoke.py`'s
-phase 6 through `run_sweep(executor="device")` at each interval, the
+The plain version of the device stepper's event loops
+(`repro_torch.kernels.event_loop`, `use_kernel=False`) reads the
+completion and overflow flags on the host once every `_SYNC_EVERY` steps;
+the CUDA kernels that run them on the card by default read none. This
+script runs the suites of `chip_smoke.py`'s phase 6 through
+`run_sweep(executor="device")` on the plain version at each interval, the
 intervals in turns (1, 8, 64, then 64, 8, 1, ...), and prints for each
 suite and interval the median wall time, host syncs, event steps and host
 seconds in the loops. Every interval must give the first interval's
@@ -17,6 +19,7 @@ on the device, or the script fails. It needs one CUDA device
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import sys
@@ -47,7 +50,9 @@ def main() -> None:
     counts = device_stepper.COUNTS
     default_every = device_stepper._SYNC_EVERY
     records = []
-    try:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(chip_smoke.plain_event_loops())
+        stack.callback(setattr, device_stepper, "_SYNC_EVERY", default_every)
         for name, p in chip_smoke.SWEEP_SUITES.items():
             frozen = chip_smoke.make_suite(name) if p["epochs"] else None
             first = None
@@ -81,8 +86,6 @@ def main() -> None:
                            nvidia_smi=smi)
                 print(json.dumps(rec))
                 records.append(rec)
-    finally:
-        device_stepper._SYNC_EVERY = default_every
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(records, indent=1))

@@ -18,9 +18,10 @@ and the byte data plane.
   host), plus `run_scheme_vectorized`, the batched twin of
   `simulator.run_scheme` that `repro_torch.sim.sweep.run_sweep(
   executor="vectorized")` dispatches to;
-* `repro_torch.core.engine.device_stepper` — the same event loops as
-  torch float64 programs on the card behind `run_sweep(executor="device")`
-  (the JAX package's `jax_stepper`); planning and replanning stay on the
+* `repro_torch.core.engine.device_stepper` — the same event loops on
+  the card behind `run_sweep(executor="device")` (the JAX package's
+  `jax_stepper`), as the CUDA kernels of `repro_torch.kernels.event_loop`
+  (float64, one launch a call); planning and replanning stay on the
   host;
 * `repro_torch.core.engine.dataplane` — the byte data plane: batches of
   compiled plans executed over real bytes in one `(B, slots, nbytes)`

@@ -30,7 +30,7 @@ plans in place. The `(B, ...)` layout is the seam a device stepper
 plugs into: both execution *and* replanning are array math over static
 shapes, and `repro_torch.core.engine.device_stepper` exploits exactly
 that — `run_work_vectorized(backend="device")` swaps the numpy event
-loops for torch float64 tensor programs on the card while this module
+loops for float64 event-loop kernels on the card while this module
 keeps owning the host-side orchestration (planning, the per-round BMF
 monitor-and-replan step, result bookkeeping).
 

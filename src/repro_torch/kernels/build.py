@@ -106,6 +106,24 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gf256_matmul_bytes_launch.restype = i32
     lib.gf256_scale_bytes_launch.argtypes = [p, p, p, i32, i64, p]
     lib.gf256_scale_bytes_launch.restype = i32
+    _bind_event_loops(lib)
+
+
+def _bind_event_loops(lib: ctypes.CDLL) -> None:
+    """The functions of `event_loop.cu`."""
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ctx = [p] * 8                     # a batch's context
+    lib.round_events_launch.argtypes = [
+        *ctx, p, i32, i32, i32, i32, i32, p, p, p, i32, i32, i32, p, i64, p,
+        p]
+    lib.round_events_launch.restype = i32
+    lib.pipeline_events_launch.argtypes = [
+        *ctx, p, p, i32, i32, i32, i32, i32, p, p, p, p, i32, p, i64, p, p]
+    lib.pipeline_events_launch.restype = i32
+    lib.round_events_smem.argtypes = [i32, i32]
+    lib.round_events_smem.restype = i64
+    lib.pipeline_events_smem.argtypes = [i32, i32]
+    lib.pipeline_events_smem.restype = i64
 
 
 @functools.lru_cache(maxsize=1)

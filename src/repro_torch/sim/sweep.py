@@ -230,9 +230,10 @@ def _resolve_executor(executor: str, cases,
                       max_workers: int | None = None) -> str:
     """"auto" = the vectorized engine. The JAX package's auto picks its
     jax stepper for large trace-frozen suites on an accelerator; this
-    package's device stepper is slower than the vectorized engine on
-    every suite measured on an H100 (PERF.md), so it stays an explicit
-    opt-in. The process pool stays opt-in too: it only beats the
+    package's device stepper, as a host loop of eager torch ops, was
+    slower than the vectorized engine on every suite measured on an H100,
+    and its event-loop kernels have no measured crossover yet (PERF.md),
+    so it stays an explicit opt-in. The process pool stays opt-in too: it only beats the
     vectorized engine for very long individual cases, which a heuristic
     cannot see. Every executor matches the serial one case for case."""
     if executor == "jax":

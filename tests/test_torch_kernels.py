@@ -128,7 +128,7 @@ def test_wrappers_reject_bad_inputs():
 
 def test_build_is_keyed_on_sources():
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["gf256_matmul.cu", "xor_reduce.cu"]
+    assert srcs == ["event_loop.cu", "gf256_matmul.cu", "xor_reduce.cu"]
     digest = build.source_digest()
     assert len(digest) == 16 and digest == build.source_digest()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
