@@ -209,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import importlib.util
@@ -246,6 +247,7 @@ from repro_torch.ec import bitplane, gf256  # noqa: E402
 from repro_torch.ec import stripe as stripe_lib  # noqa: E402
 from repro_torch.ec.rs import RSCode  # noqa: E402
 from repro_torch.kernels import event_loop, ops, ref  # noqa: E402
+from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels.build import load_library  # noqa: E402
 from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
                                               gf256_matmul_planes,
@@ -985,6 +987,8 @@ def time_xor(peaks, k, form) -> dict:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for name in EVENT_LOOPS:
+        WRAPPERS[name].routes.update(dict.fromkeys(event_loop.ROUTES, 0))
     bitplane.pack.calls = bitplane.unpack.calls = 0
 
 
@@ -1408,6 +1412,10 @@ def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
                 pipeline_events=checked["pipeline_calls"])
     if launches != want or not sum(launches[k] for k in EVENT_LOOPS):
         raise AssertionError(f"{name}: sweep launches {launches} != {want}")
+    routes = {k: dict(WRAPPERS[k].routes) for k in EVENT_LOOPS}
+    if any(r["block"] for r in routes.values()):
+        raise AssertionError(f"{name}: a suite batch took the block route: "
+                             f"{routes}")
     if checked["host_batches"] or not checked["device_batches"]:
         raise AssertionError(f"{name}: batch routes {checked}")
     if p["epochs"] is None and not checked["horizon_grows"]:
@@ -1469,7 +1477,8 @@ def sweep_suite(records: list, name: str, device: str = "cuda") -> dict:
                byte_verification=dict(pairs=len(bv.checked), nbytes=bv.nbytes,
                                       verified=bv.verified,
                                       rounds=bv.rounds),
-               launches=launches, profile=prof, plain_route=plain)
+               launches=launches, launch_routes=routes, profile=prof,
+               plain_route=plain)
     print(json.dumps(rec))
     records.append(rec)
     return launches
@@ -1492,6 +1501,13 @@ def sweep_phase(records: list, device: str = "cuda") -> dict:
 # rate outside the tensor cores.
 FP64_PER_S = 34e12
 EVENT_GUARD = 100_000              # device_stepper._GUARD
+FLOOR_STEPS = 100_000              # the step yardstick's chain
+ROUTE_KEYS = ("ms", "ms_turns", "us_per_step", "bound_ms",
+              "chain_floor_ms", "max_rel_err", "steps")
+EVENT_KERNELS = {("round_events", "warp"): "round_events_warp_kernel",
+                 ("round_events", "block"): "round_events_kernel",
+                 ("pipeline_events", "warp"): "pipeline_events_warp_kernel",
+                 ("pipeline_events", "block"): "pipeline_events_kernel"}
 _FROZEN: dict = {}                 # phase 6's frozen suites, built once
 
 
@@ -1544,8 +1560,9 @@ def synthetic_trees(rng, B: int, N: int, shape: str):
     """(B, N - 1) edge tables of random repair trees over nodes 0..N-1 (0
     the root): "flat" (every node's parent the root: depth 1), "zero"
     (the same at depth 0: no level is scanned), "deep" (a chain), "mixed"
-    (a random recursive tree), with some edges missing and one case with
-    no edge."""
+    (a random recursive tree), "scrambled" (that tree with depths drawn
+    from -1..4, which need not nest), with some edges missing and one case
+    with no edge."""
     E = N - 1
     child = np.tile(np.arange(1, N), (B, 1))
     parent = np.zeros((B, E), dtype=np.int64)
@@ -1560,6 +1577,8 @@ def synthetic_trees(rng, B: int, N: int, shape: str):
                                                                0)] + 1)
     if shape == "zero":
         depth[:] = 0
+    if shape == "scrambled":
+        depth = rng.integers(-1, 5, (B, E))
     valid = rng.random((B, E)) < 0.85
     valid[0] = False
     return child, parent, depth, valid
@@ -1604,57 +1623,187 @@ def event_bound(name: str, ctx, tables, packed: np.ndarray,
             ) + (float(nbytes), float(ops))
 
 
+def hand_event_batches(device="cuda", B: int = 48):
+    """Phase 2's hand-made event-loop batches, as (name, ctx, tables, t0,
+    label, guard, expected error or None): epochs crossed, cycled,
+    clamped and static; R = 1 and 6; trees of depth 0, 1, random, a
+    chain and depths that do not nest; a round and a tree above the warp
+    route's 32 lanes and nodes (the block kernels); a horizon overflow
+    and a 3-step guard."""
+    rng = np.random.default_rng(17)
+    N = 14
+    # epochs crossed: per-case intervals 0.2-2 s over 16 epochs, the
+    # trace cycled (even cases) or clamped (odd) past its end, and static
+    # networks (interval inf) in a third of the cases
+    interval = rng.uniform(0.2, 2.0, B)
+    interval[::3] = np.inf
+    cycle = np.arange(B) % 2 == 0
+    for R, T, H in ((1, 13, 1), (1, 9, 4), (6, 12, 3)):
+        ctx = synthetic_ctx(rng, B, N, 16, 6, interval=interval, cycle=cycle,
+                            can_ovf=False, device=device)
+        tables = synthetic_rounds(rng, B, R, T, H, N)
+        yield ("round_events", ctx, tables, rng.uniform(0.0, 5.0, B),
+               f"hand R={R} T={T} H={H}", EVENT_GUARD, None)
+    for shape in ("zero", "flat", "mixed", "deep", "scrambled"):
+        ctx = synthetic_ctx(rng, B, N, 16, N - 1, interval=interval,
+                            cycle=cycle, can_ovf=False, device=device)
+        yield ("pipeline_events", ctx, synthetic_trees(rng, B, N, shape),
+               rng.uniform(0.0, 5.0, B), f"hand tree {shape}", EVENT_GUARD,
+               None)
+    # a live horizon of 2 short epochs: some case outruns it
+    ctx = synthetic_ctx(rng, B, N, 2, 6, interval=0.05, cycle=False,
+                        can_ovf=True, device=device)
+    overflow = event_loop.EpochHorizonError
+    yield ("round_events", ctx,
+           synthetic_rounds(rng, B, 3, 12, 3, N, idle=0.0), np.zeros(B),
+           "hand horizon overflow", EVENT_GUARD, overflow)
+    yield ("pipeline_events", ctx, synthetic_trees(rng, B, N, "mixed"),
+           np.zeros(B), "hand horizon overflow", EVENT_GUARD, overflow)
+    # a guard of 3 steps
+    ctx = synthetic_ctx(rng, B, N, 16, 6, interval=0.05, cycle=True,
+                        can_ovf=False, device=device)
+    yield ("round_events", ctx,
+           synthetic_rounds(rng, B, 2, 12, 3, N, idle=0.0), np.zeros(B),
+           "hand guard 3", 3, RuntimeError)
+    yield ("pipeline_events", ctx, synthetic_trees(rng, B, N, "deep"),
+           np.zeros(B), "hand guard 3", 3, RuntimeError)
+    # above the warp route's 32 lanes and nodes: 40 transfers, 47 edges
+    # on 48 nodes
+    N = 48
+    ctx = synthetic_ctx(rng, B, N, 16, 6, interval=interval, cycle=cycle,
+                        can_ovf=False, device=device)
+    yield ("round_events", ctx, synthetic_rounds(rng, B, 2, 40, 3, N),
+           rng.uniform(0.0, 5.0, B), "hand N=48 R=2 T=40 H=3", EVENT_GUARD,
+           None)
+    ctx = synthetic_ctx(rng, B, N, 16, N - 1, interval=interval,
+                        cycle=cycle, can_ovf=False, device=device)
+    yield ("pipeline_events", ctx, synthetic_trees(rng, B, N, "mixed"),
+           rng.uniform(0.0, 5.0, B), "hand N=48 tree mixed", EVENT_GUARD,
+           None)
+
+
+def event_lanes(name: str, tables) -> int:
+    """A call's transfers (a round) or edges (a tree) a case."""
+    return np.shape(tables[0])[2 if name == "round_events" else 1]
+
+
+@functools.lru_cache(maxsize=1)
+def step_floor_library() -> ctypes.CDLL:
+    """The step yardstick, `scripts/event_step_floor.cu` (a measurement,
+    not a kernel of the port), built with nvcc into build/step_floor/."""
+    src = Path(__file__).resolve().parent / "scripts" / "event_step_floor.cu"
+    out = src.parents[1] / "build" / "step_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libevent_step_floor.so"
+    subprocess.run([kernel_build._nvcc(), *kernel_build.NVCC_FLAGS, "-shared",
+                    str(src), "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.event_step_floor_launch.argtypes = [
+        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    lib.event_step_floor_launch.restype = ctypes.c_int
+    return lib
+
+
+def step_floor_us() -> float:
+    """µs of the step yardstick: one warp doing a step's least dependent
+    work, FLOOR_STEPS steps in a chain."""
+    lib = step_floor_library()
+    out = torch.empty(32, dtype=torch.float64, device="cuda")
+
+    def chain():
+        kernel_build.check_launch(lib.event_step_floor_launch(
+            0.75, 3.0, 16.0, FLOOR_STEPS, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "event_step_floor")
+
+    return cuda_ms(chain, reps=5) * 1e3 / FLOOR_STEPS
+
+
 def hold_event_loop(name: str, ctx, tables, t0, label: str, *,
                     guard: int = EVENT_GUARD, expect=None, peaks=None,
-                    timed: bool = False) -> dict:
-    """The kernel against its plain version on the card, on the same
-    inputs: equal end clocks (max abs and rel err printed) and equal step
-    counts, no flag; or, with `expect` an exception type, both must raise
-    it. With `timed`, also their times, the bound and µs a step."""
+                    floor_us: float | None = None) -> list:
+    """Each route of the kernel against its plain version on the card, on
+    the same inputs: equal end clocks (max abs and rel err printed) and
+    equal step counts, no flag; or, with `expect` an exception type, all
+    must raise it. The warp route is held where the case fits it, and must
+    refuse it where not. With `peaks` (a timed check), also the routes'
+    times, taken in turns (warp, block, block, warp), the bound, the
+    chain's floor (`floor_us` a step) and µs a step. One record a route."""
     wrapper = WRAPPERS[name]
 
-    def run(use_kernel=True):
-        return wrapper(ctx, *tables, t0, guard=guard, use_kernel=use_kernel)
+    def run(route=None, use_kernel=True):
+        return wrapper(ctx, *tables, t0, guard=guard, use_kernel=use_kernel,
+                       _route=route)
 
-    got = run().cpu().numpy()
-    want = run(False).cpu().numpy()
-    rec = dict(kernel=name, shape=label, cases=int(got.shape[2]),
-               rounds=int(got.shape[1]))
-    if expect is not None:
-        raised = []
-        for packed in (got, want):
-            try:
-                event_loop.check_flags(packed[event_loop.FLAGS])
-                raised.append(None)
-            except expect as e:
-                raised.append(type(e).__name__)
-        if raised != [expect.__name__] * 2:
-            raise AssertionError(f"{name} {label}: kernel and plain raised "
-                                 f"{raised}, not {expect.__name__}")
-        rec.update(raised=expect.__name__, max_abs_err=0.0)
-        print(json.dumps(rec))
-        return rec
-    if got[event_loop.FLAGS].any() or want[event_loop.FLAGS].any():
-        raise AssertionError(f"{name} {label}: flags {got[2]} / {want[2]}")
-    err = np.abs(got[event_loop.T_END] - want[event_loop.T_END])
-    rel = err / np.maximum(np.abs(want[event_loop.T_END]), 1e-300)
-    rec.update(max_abs_err=float(err.max(initial=0.0)),
-               max_rel_err=float(rel.max(initial=0.0)),
-               steps=event_steps(want),
-               steps_equal=bool(np.array_equal(got[event_loop.STEPS],
-                                               want[event_loop.STEPS])))
-    if not rec["steps_equal"] or not rec["max_rel_err"] <= 1e-6:
-        raise AssertionError(f"{name} {label}: kernel and plain differ: "
-                             f"{rec}")
-    if timed:
+    want = run(use_kernel=False).cpu().numpy()
+    fits = event_loop.warp_route_fits(event_lanes(name, tables),
+                                      ctx.stack.shape[2])
+    routes = list(event_loop.ROUTES) if fits else ["block"]
+    if not fits:
+        try:
+            run("warp")
+        except event_loop.DeviceUnsupported:
+            pass
+        else:
+            raise AssertionError(f"{name} {label}: the warp route took a "
+                                 "case too large for it")
+    recs = []
+    for route in routes:
+        got = run(route).cpu().numpy()
+        rec = dict(kernel=name, route=route, shape=label,
+                   cases=int(got.shape[2]), rounds=int(got.shape[1]))
+        recs.append(rec)
+        if expect is not None:
+            raised = []
+            for packed in (got, want):
+                try:
+                    event_loop.check_flags(packed[event_loop.FLAGS])
+                    raised.append(None)
+                except expect as e:
+                    raised.append(type(e).__name__)
+            if raised != [expect.__name__] * 2:
+                raise AssertionError(f"{name} {label} ({route}): kernel and "
+                                     f"plain raised {raised}, not "
+                                     f"{expect.__name__}")
+            rec.update(raised=expect.__name__, max_abs_err=0.0)
+            continue
+        if got[event_loop.FLAGS].any() or want[event_loop.FLAGS].any():
+            raise AssertionError(f"{name} {label} ({route}): flags "
+                                 f"{got[2]} / {want[2]}")
+        err = np.abs(got[event_loop.T_END] - want[event_loop.T_END])
+        rel = err / np.maximum(np.abs(want[event_loop.T_END]), 1e-300)
+        rec.update(max_abs_err=float(err.max(initial=0.0)),
+                   max_rel_err=float(rel.max(initial=0.0)),
+                   steps=event_steps(want),
+                   steps_equal=bool(np.array_equal(got[event_loop.STEPS],
+                                                   want[event_loop.STEPS])))
+        rec["t_end_equal"] = bool(np.array_equal(got[event_loop.T_END],
+                                                 want[event_loop.T_END]))
+        if not (rec["steps_equal"] and rec["t_end_equal"]):
+            raise AssertionError(f"{name} {label}: kernel and plain differ: "
+                                 f"{rec}")
+    if peaks is not None and expect is None:
+        turns = {route: [] for route in routes}
+        for route in routes + routes[::-1]:
+            turns[route].append(kernel_times(
+                lambda: run(route), EVENT_KERNELS[name, route]))
+        plain_ms = cuda_ms(lambda: run(use_kernel=False), reps=2)
         bms, by, nbytes, ops = event_bound(name, ctx, tables, want, peaks)
-        rec.update(**kernel_times(run, f"{name}_kernel"),
-                   plain_ms=cuda_ms(lambda: run(False), reps=2),
-                   bound_ms=bms, bound_by=by, bytes=nbytes, fp64_ops=ops,
-                   library_ms=None)   # no PyTorch call runs an event loop
-        rec["us_per_step"] = rec["ms"] * 1e3 / max(rec["steps"], 1)
-    print(json.dumps(rec))
-    return rec
+        for rec in recs:
+            ts = turns[rec["route"]]
+            rec.update(ms=statistics.mean(t["ms"] for t in ts),
+                       ms_turns=[t["ms"] for t in ts],
+                       profile_windows=sum(t["profile_windows"] for t in ts),
+                       ms_events=statistics.mean(t["ms_events"] for t in ts),
+                       ms_single=statistics.mean(t["ms_single"] for t in ts),
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       bytes=nbytes, fp64_ops=ops,
+                       chain_floor_ms=rec["steps"] * floor_us * 1e-3,
+                       library_ms=None)  # no PyTorch call runs an event loop
+            rec["us_per_step"] = rec["ms"] * 1e3 / max(rec["steps"], 1)
+    for rec in recs:
+        print(json.dumps(rec))
+    return recs
 
 
 @contextlib.contextmanager
@@ -1696,50 +1845,14 @@ def event_loop_checks(records: list, peaks: dict,
                     != event_loop.pipeline_smem_bytes(n, m)):
                 raise AssertionError("event_loop.py's shared-memory sizes "
                                      "differ from event_loop.cu's")
-    rng = np.random.default_rng(17)
-    B, N = 48, 14
-    hand = []
-    # epochs crossed: per-case intervals 0.2-2 s over 16 epochs, the
-    # trace cycled (even cases) or clamped (odd) past its end, and static
-    # networks (interval inf) in a third of the cases
-    interval = rng.uniform(0.2, 2.0, B)
-    interval[::3] = np.inf
-    cycle = np.arange(B) % 2 == 0
-    for R, T, H in ((1, 13, 1), (1, 9, 4), (6, 12, 3)):
-        ctx = synthetic_ctx(rng, B, N, 16, 6, interval=interval, cycle=cycle,
-                            can_ovf=False, device=device)
-        tables = synthetic_rounds(rng, B, R, T, H, N)
-        t0 = rng.uniform(0.0, 5.0, B)
-        hand.append(hold_event_loop("round_events", ctx, tables, t0,
-                                    f"hand R={R} T={T} H={H}"))
-    for shape in ("zero", "flat", "mixed", "deep"):
-        ctx = synthetic_ctx(rng, B, N, 16, N - 1, interval=interval,
-                            cycle=cycle, can_ovf=False, device=device)
-        tables = synthetic_trees(rng, B, N, shape)
-        hand.append(hold_event_loop("pipeline_events", ctx, tables,
-                                    rng.uniform(0.0, 5.0, B),
-                                    f"hand tree {shape}"))
-    # a live horizon of 2 short epochs: some case outruns it
-    ctx = synthetic_ctx(rng, B, N, 2, 6, interval=0.05, cycle=False,
-                        can_ovf=True, device=device)
-    hand.append(hold_event_loop(
-        "round_events", ctx, synthetic_rounds(rng, B, 3, 12, 3, N, idle=0.0),
-        np.zeros(B), "hand horizon overflow",
-        expect=event_loop.EpochHorizonError))
-    hand.append(hold_event_loop(
-        "pipeline_events", ctx, synthetic_trees(rng, B, N, "mixed"),
-        np.zeros(B), "hand horizon overflow",
-        expect=event_loop.EpochHorizonError))
-    # a guard of 3 steps
-    ctx = synthetic_ctx(rng, B, N, 16, 6, interval=0.05, cycle=True,
-                        can_ovf=False, device=device)
-    hand.append(hold_event_loop(
-        "round_events", ctx, synthetic_rounds(rng, B, 2, 12, 3, N, idle=0.0),
-        np.zeros(B), "hand guard 3", guard=3, expect=RuntimeError))
-    hand.append(hold_event_loop(
-        "pipeline_events", ctx, synthetic_trees(rng, B, N, "deep"),
-        np.zeros(B), "hand guard 3", guard=3, expect=RuntimeError))
-    records.extend(hand)
+    floor_us = step_floor_us()
+    records.append(dict(phase="event_step_floor", steps=FLOOR_STEPS,
+                        us_per_step=floor_us))
+    print(json.dumps(records[-1]))
+    for name, ctx, tables, t0, label, guard, expect in hand_event_batches(
+            device):
+        records.extend(hold_event_loop(name, ctx, tables, t0, label,
+                                       guard=guard, expect=expect))
 
     timed: dict = {}
     for name in SWEEP_SUITES:
@@ -1752,13 +1865,17 @@ def event_loop_checks(records: list, peaks: dict,
         # R > 1 first: a whole plan's rounds are the kernel's longest work
         for (kname, multi), (ctx, tables, t0) in sorted(kept.items(),
                                                         reverse=True):
-            rec = hold_event_loop(
+            recs = hold_event_loop(
                 kname, ctx, tables, t0,
                 f"{name} largest batch, R {'> 1' if multi else '= 1'}",
-                peaks=peaks, timed=True)
-            rec.update(suite=name, record_s=time.perf_counter() - tic)
-            records.append(rec)
-            timed.setdefault(kname, rec)
+                peaks=peaks, floor_us=floor_us)
+            by_route = {}
+            for rec in recs:
+                rec.update(suite=name, record_s=time.perf_counter() - tic)
+                by_route[rec["route"]] = {k: rec[k] for k in ROUTE_KEYS}
+            records.extend(recs)
+            if kname not in timed:     # the main path's route, both beside
+                timed[kname] = dict(recs[0], routes=by_route)
         del kept
         torch.cuda.empty_cache()
     missing = set(EVENT_LOOPS) - set(timed)
@@ -3026,9 +3143,17 @@ def main() -> None:
     print(json.dumps(checkpoint_encode))
     records.append(checkpoint_encode)
     torch.cuda.empty_cache()
+    # phase 7's and 10a's loads: one reconstruct a stripe that lost data,
+    # (lost, 4) helper rows of 256 KiB, the kernel's most launched shape
+    for m in (1, 2):
+        rec = check_matmul_bytes(rng, peaks, m, 4, CKPT_CHUNK, True)
+        rec["path"] = "checkpoint load, one launch a stripe that lost data"
+        print(json.dumps(rec))
+        records.append(rec)
     timed.update(event_loop_checks(records, peaks))
     for rec in records[1:]:
-        errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
+        if "kernel" in rec:
+            errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
 
     serial_launches = main_path(records)
     small_checks(records)
@@ -3078,8 +3203,10 @@ def main() -> None:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"],
             library_ms_events=t.get("library_ms_events"), shape=t["shape"],
-            **({k: t[k] for k in ("steps", "us_per_step", "max_rel_err")}
-               if kname in EVENT_LOOPS else {})))
+            **({k: t[k] for k in ("steps", "us_per_step", "max_rel_err",
+                                  "chain_floor_ms", "routes")}
+               if kname in EVENT_LOOPS else {}),
+            **({"launch_route": t["route"]} if kname in EVENT_LOOPS else {})))
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.json:

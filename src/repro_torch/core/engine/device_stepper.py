@@ -4,9 +4,10 @@ This is the counterpart of the JAX package's `core/engine/jax_stepper.py`.
 `repro_torch.core.engine.vectorized` keeps the host-side orchestration
 (planning, the per-round BMF monitor-and-replan step, result bookkeeping);
 this module replaces only its *event loops*, which run in
-`repro_torch.kernels.event_loop`: on the card as the CUDA kernels
-`round_events_kernel` / `pipeline_events_kernel` (one launch a call, one
-block a case, the whole loop inside the kernel), with `device="cpu"` (or
+`repro_torch.kernels.event_loop`: on the card as its CUDA kernels (one
+launch a call, the whole loop inside the kernel; one warp a case where a
+case has at most 32 transfers or edges on at most 32 nodes, else one
+block a case), with `device="cpu"` (or
 `use_kernel=False`) as their plain versions, float64 torch ops stepping
 the batch in lockstep.
 

@@ -115,10 +115,11 @@ def _bind_event_loops(lib: ctypes.CDLL) -> None:
     ctx = [p] * 8                     # a batch's context
     lib.round_events_launch.argtypes = [
         *ctx, p, i32, i32, i32, i32, i32, p, p, p, i32, i32, i32, p, i64, p,
-        p]
+        i32, p]
     lib.round_events_launch.restype = i32
     lib.pipeline_events_launch.argtypes = [
-        *ctx, p, p, i32, i32, i32, i32, i32, p, p, p, p, i32, p, i64, p, p]
+        *ctx, p, p, i32, i32, i32, i32, i32, p, p, p, p, i32, p, i64, p, i32,
+        p]
     lib.pipeline_events_launch.restype = i32
     lib.round_events_smem.argtypes = [i32, i32]
     lib.round_events_smem.restype = i64

@@ -13,18 +13,30 @@ transfer and retires the completed ones. Two loops exist:
   an edge's rate capped by the slowest edge of the subtree feeding it (a
   min-scan over depth levels, deepest first).
 
-The kernels in `csrc/event_loop.cu` (`round_events_kernel`,
-`pipeline_events_kernel`) replace the JAX package's jitted programs in
-`src/repro/core/engine/jax_stepper.py` (`round_events` :170 and
-`rounds_scan` :217, `pipeline_events` :241; jitted `lax.while_loop` /
-`lax.scan` programs, not Pallas kernels). One block runs one case from its
-first step to its last, so the batch makes one launch and one host read
-where the plain version makes ~82 launches a step and a host read every
-`sync_every` steps. They are bound by the serial chain of event steps of
-the slowest case, not by bytes: the epochs a case reaches and its hop
-tables are read in microseconds.
+The kernels in `csrc/event_loop.cu` replace the JAX package's jitted
+programs in `src/repro/core/engine/jax_stepper.py` (`round_events` :170
+and `rounds_scan` :217, `pipeline_events` :241; jitted `lax.while_loop` /
+`lax.scan` programs, not Pallas kernels). A case runs from its first step
+to its last inside one launch, so the batch makes one launch and one host
+read where the plain version makes ~82 launches a step and a host read
+every `sync_every` steps. They are bound by the serial chain of event
+steps of the slowest case, not by bytes: the epochs a case reaches and its
+hop tables are read in microseconds. Each has two routes, picked by shape
+here (`pick_route`) and passed to the launch function, which refuses a warp
+launch of a case that does not fit it:
 
-Both routes return one packed float64 tensor `(3, R, B)`: row `T_END` the
+* "warp" (`round_events_warp_kernel`, `pipeline_events_warp_kernel`): one
+  warp a case, for at most `WARP_LANES` transfers (edges) on at most
+  `WARP_LANES` nodes, the steps kept inside the warp by warp intrinsics;
+* "block" (`round_events_kernel`, `pipeline_events_kernel`): one block a
+  case, for larger cases, within the shared-memory limits below.
+
+The private keyword `_route` forces one of them (for `chip_smoke.py` and
+the tests, which hold and time the two on the same batch); each wrapper's
+`routes` counts its launches by route.
+
+The kernels and the plain versions return one packed float64 tensor
+`(3, R, B)`: row `T_END` the
 clock at each round's end, `STEPS` each case's event steps in the round,
 `FLAGS` `OVERFLOW` (a live case outran its pre-sampled epochs) or
 `STALLED` (a case reached `guard` steps); `check_flags` raises for them.
@@ -58,6 +70,8 @@ T_END, STEPS, FLAGS = 0, 1, 2     # rows of the packed output
 OVERFLOW, STALLED = 1, 2          # bits of the FLAGS row (kOverflow, kStalled)
 SMEM_LIMIT = 232_448              # shared memory a block can use on sm_90
 _THREADS_MAX = 256                # kMaxThreads in csrc/event_loop.cu
+WARP_LANES = 32                   # kWarpLanes: the warp route's largest case
+ROUTES = {"warp": 1, "block": 2}  # kRouteWarp, kRouteBlock
 
 _F64 = torch.float64
 _I64 = torch.int64
@@ -118,6 +132,26 @@ def check_pipeline_shape(edges: int, num_nodes: int) -> None:
         raise DeviceUnsupported(
             f"{edges} tree edges on {num_nodes} nodes need {need} bytes of "
             f"shared memory a block, above the kernel's {SMEM_LIMIT}")
+
+
+def warp_route_fits(lanes: int, num_nodes: int) -> bool:
+    """Whether a case of `lanes` transfers (edges) on `num_nodes` nodes
+    runs on the warp route (the launch functions' `warp_fits`)."""
+    return lanes <= WARP_LANES and num_nodes <= WARP_LANES
+
+
+def pick_route(lanes: int, num_nodes: int, forced: str | None) -> str:
+    """The route a launch takes: by shape, or `forced`."""
+    if forced is None:
+        return "warp" if warp_route_fits(lanes, num_nodes) else "block"
+    if forced not in ROUTES:
+        raise ValueError(f"route must be one of {sorted(ROUTES)}, got "
+                         f"{forced!r}")
+    if forced == "warp" and not warp_route_fits(lanes, num_nodes):
+        raise DeviceUnsupported(
+            f"{lanes} transfers or edges on {num_nodes} nodes do not fit "
+            f"the warp route's {WARP_LANES} lanes")
+    return forced
 
 
 def check_flags(flags: np.ndarray) -> None:
@@ -213,6 +247,14 @@ def _shape_args(ctx: EventCtx, batch: int) -> list:
     return [batch, epochs, num_nodes, m1, m]
 
 
+def _launch_route(lanes: int, num_nodes: int, forced: str | None,
+                  check_block) -> str:
+    route = pick_route(lanes, num_nodes, forced)
+    if route == "block":
+        check_block(lanes, num_nodes)
+    return route
+
+
 def _plain_route(ctx: EventCtx, use_kernel: bool) -> bool:
     device = ctx.stack.device
     if device.type == "cpu" or (device.type == "cuda" and not use_kernel):
@@ -224,8 +266,8 @@ def _plain_route(ctx: EventCtx, use_kernel: bool) -> bool:
 
 # ---------------------------------------------------------------- wrappers
 def round_events(ctx: EventCtx, hop_u, hop_v, n_hops, t0, *, guard: int,
-                 sync_every: int = 8, counts=None,
-                 use_kernel: bool = True) -> torch.Tensor:
+                 sync_every: int = 8, counts=None, use_kernel: bool = True,
+                 _route: str | None = None) -> torch.Tensor:
     """R rounds of a batch's transfers, event by event -> (3, R, B).
 
     `hop_u` / `hop_v` (B, R, T, H) host tables of each transfer's hops
@@ -248,7 +290,7 @@ def round_events(ctx: EventCtx, hop_u, hop_v, n_hops, t0, *, guard: int,
         return round_events_ref(ctx, hop_u, hop_v, n_hops, t0, guard=guard,
                                 sync_every=sync_every, counts=counts)
     _check_ctx(ctx, B)
-    check_round_shape(T, num_nodes)
+    route = _launch_route(T, num_nodes, _route, check_round_shape)
     device = ctx.stack.device
     out = torch.empty((3, R, B), dtype=_F64, device=device)
     if B == 0:
@@ -261,18 +303,21 @@ def round_events(ctx: EventCtx, hop_u, hop_v, n_hops, t0, *, guard: int,
         build.check_launch(lib.round_events_launch(
             *_ctx_args(ctx), ctx.shares.data_ptr(), *_shape_args(ctx, B),
             hu.data_ptr(), hv.data_ptr(), nh.data_ptr(), R, T, H,
-            t0.data_ptr(), int(guard), out.data_ptr(), stream),
-            "round_events")
+            t0.data_ptr(), int(guard), out.data_ptr(), ROUTES[route],
+            stream), "round_events")
     round_events.launches += 1
+    round_events.routes[route] += 1
     return out
 
 
 round_events.launches = 0
+round_events.routes = dict.fromkeys(ROUTES, 0)
 
 
 def pipeline_events(ctx: EventCtx, child, parent, depth, edge_valid, t0, *,
                     guard: int, sync_every: int = 8, counts=None,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool = True,
+                    _route: str | None = None) -> torch.Tensor:
     """PPT's pipeline over each case's tree, event by event -> (3, 1, B).
 
     `child` / `parent` (B, E) host tables of each edge's end nodes,
@@ -294,7 +339,7 @@ def pipeline_events(ctx: EventCtx, child, parent, depth, edge_valid, t0, *,
                                    guard=guard, sync_every=sync_every,
                                    counts=counts)
     _check_ctx(ctx, B)
-    check_pipeline_shape(E, num_nodes)
+    route = _launch_route(E, num_nodes, _route, check_pipeline_shape)
     device = ctx.stack.device
     out = torch.empty((3, 1, B), dtype=_F64, device=device)
     if B == 0:
@@ -309,12 +354,14 @@ def pipeline_events(ctx: EventCtx, child, parent, depth, edge_valid, t0, *,
             *_ctx_args(ctx), ctx.duplex.data_ptr(), ctx.shares.data_ptr(),
             *_shape_args(ctx, B), c.data_ptr(), p.data_ptr(), d.data_ptr(),
             v.data_ptr(), E, t0.data_ptr(), int(guard), out.data_ptr(),
-            stream), "pipeline_events")
+            ROUTES[route], stream), "pipeline_events")
     pipeline_events.launches += 1
+    pipeline_events.routes[route] += 1
     return out
 
 
 pipeline_events.launches = 0
+pipeline_events.routes = dict.fromkeys(ROUTES, 0)
 
 
 # ------------------------------------------------------- the plain versions

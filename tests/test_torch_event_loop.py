@@ -18,8 +18,10 @@ Inputs come from numpy seeds. Comparisons are bit for bit unless a
 tolerance is stated (the reference's 1e-6 rtol across packages).
 """
 import dataclasses
+import importlib.util
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +34,8 @@ from repro_torch.core import topology
 from repro_torch.core.engine import device_stepper, vectorized
 from repro_torch.ec.rs import RSCode
 from repro_torch.kernels import event_loop
+
+ROOT = Path(__file__).resolve().parents[1]
 
 GUARD = 100_000
 RTOL = 1e-6
@@ -358,6 +362,72 @@ def test_no_launch_on_the_cpu_or_without_the_kernel():
             event_loop.pipeline_events.launches) == before
 
 
+def test_forced_routes_run_the_plain_version_on_the_cpu():
+    """`_route` picks a kernel; a CPU tensor still takes the plain version,
+    whatever the route, and nothing is counted."""
+    rng = np.random.default_rng(2)
+    B, N = 3, 6
+    ctx = synthetic_ctx(rng, B, N, 4, N - 1, interval=1.0, cycle=True)
+    rounds = synthetic_rounds(rng, B, 2, 3, 2, N)
+    trees = _trees(rng, B, N, "mixed")
+    before = (dict(event_loop.round_events.routes),
+              dict(event_loop.pipeline_events.routes))
+    want = [event_loop.round_events(ctx, *rounds, np.zeros(B), guard=GUARD),
+            event_loop.pipeline_events(ctx, *trees, np.zeros(B), guard=GUARD)]
+    for route in event_loop.ROUTES:
+        got = [event_loop.round_events(ctx, *rounds, np.zeros(B), guard=GUARD,
+                                       _route=route),
+               event_loop.pipeline_events(ctx, *trees, np.zeros(B),
+                                          guard=GUARD, _route=route)]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (event_loop.round_events.routes,
+            event_loop.pipeline_events.routes) == before
+    assert set(before[0]) == set(event_loop.ROUTES) == {"warp", "block"}
+
+
+@pytest.mark.parametrize("lanes,nodes,forced,route", [
+    (13, 14, None, "warp"), (32, 32, None, "warp"), (33, 14, None, "block"),
+    (13, 33, None, "block"), (13, 14, "block", "block"),
+    (32, 14, "warp", "warp"), (300, 70, "block", "block")])
+def test_the_route_follows_the_shape(lanes, nodes, forced, route):
+    assert event_loop.pick_route(lanes, nodes, forced) == route
+    assert event_loop.warp_route_fits(lanes, nodes) == (lanes <= 32
+                                                        and nodes <= 32)
+
+
+def test_a_forced_route_that_cannot_run_raises():
+    with pytest.raises(event_loop.DeviceUnsupported, match="warp route"):
+        event_loop.pick_route(40, 48, "warp")
+    with pytest.raises(event_loop.DeviceUnsupported, match="warp route"):
+        event_loop.pick_route(13, 33, "warp")
+    with pytest.raises(ValueError, match="route must be one of"):
+        event_loop.pick_route(13, 14, "grid")
+    # the block route's shared-memory limit holds where the warp's does not
+    with pytest.raises(event_loop.DeviceUnsupported, match="shared memory"):
+        event_loop._launch_route(10_000, 14, None,
+                                 event_loop.check_round_shape)
+    assert event_loop._launch_route(30, 14, None, None) == "warp"
+
+
+def test_the_profiled_copy_is_the_kernel_source_with_stamps():
+    """scripts/event_loop_profiled.cu, which the step breakdown builds, is
+    the package's kernel source plus its clock64() stamps, line for line;
+    the package's source has no stamp and one case-warps constant."""
+    spec = importlib.util.spec_from_file_location(
+        "event_loop_breakdown", ROOT / "scripts" / "event_loop_breakdown.py")
+    breakdown = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(breakdown)
+    src = (event_loop.build.CSRC / "event_loop.cu").read_text()
+    profiled = breakdown.PROFILED.read_text()
+    assert breakdown.without_stamps(profiled) == src
+    stamps = [line.split("(")[0].strip() for line in profiled.splitlines()
+              if breakdown.STAMP.match(line)]
+    assert stamps.count("PROF_BEGIN;") == stamps.count("PROF_END") == 4
+    assert "PROF" not in src and "clock64" not in src
+    assert "EVENT_LOOP" not in src      # no build knob: one shipped build
+    assert "kCaseWarps = 8;" in breakdown.with_case_warps(src, 8)
+
+
 def test_other_devices_raise():
     rng = np.random.default_rng(1)
     ctx = synthetic_ctx(rng, 2, 4, 2, 2, interval=1.0, cycle=True)
@@ -452,3 +522,21 @@ def test_source_matches_the_wrappers():
     assert f"kStalled = {event_loop.STALLED};" in src
     assert f"kMaxThreads = {event_loop._THREADS_MAX};" in src
     assert "kEps = 1e-9;" in src and event_loop.EPS == 1e-9
+    # the warp route: its size, the route codes, the launch functions'
+    # `route` argument before the stream (always one of the two: the
+    # wrapper picks the route, the launch function only refuses a warp
+    # launch that does not fit)
+    assert f"kWarpLanes = {event_loop.WARP_LANES};" in src
+    assert (f"kRouteWarp = {event_loop.ROUTES['warp']}, "
+            f"kRouteBlock = {event_loop.ROUTES['block']};") in src
+    assert "kRouteAuto" not in src
+    assert src.count("int route, void* stream) {") == 2
+    for kernel in ("round_events_kernel", "round_events_warp_kernel",
+                   "pipeline_events_kernel", "pipeline_events_warp_kernel"):
+        assert f"{kernel}<<<" in src, kernel
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for intrinsic in ("__ballot_sync", "__all_sync", "__any_sync",
+                      "__reduce_max_sync", "__reduce_min_sync", "__shfl_sync",
+                      "__shfl_xor_sync", "__syncwarp", "__popc",
+                      "cp.async"):
+        assert intrinsic in code, intrinsic
