@@ -7,7 +7,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
 0. the card's name and power limit (`nvidia-smi`), the torch version;
    raises when no CUDA device is visible;
 1. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, sm_90a);
-2. hold each of the eight kernels against its plain PyTorch version on the
+2. hold each of the nine kernels against its plain PyTorch version on the
    card, bit-exact, at the CPU-test shapes and the main paths' shapes, and
    time both beside the least time the card could take for the same work
    and, where one exists, one PyTorch call computing the same function
@@ -22,7 +22,19 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    3, and on ragged byte rows through `ops.xor_reduce`; at 128 MiB rows
    (k = 2 and 3, both forms); `gf256_matmul_bytes` also at phase 7's
    checkpoint encode, (2, 4) over 3,451 stripes of 256 KiB (3.62e9 bytes
-   in, 1.81e9 out); the two-row folds (`xor_reduce_words`,
+   in, 1.81e9 out), and at a load's per-stripe reconstruct, (1, 4) and
+   (2, 4) x 256 KiB (the launches the batched kernel replaced);
+   `gf256_reconstruct_stripes` (every stripe of a checkpoint load in one
+   launch) on small batches from a seeded generator (1, 4 and 37 stripes,
+   one and two lost rows mixed, rows of 4096 and 4099 bytes in a byte
+   space of two buffers, helper rows aligned, 3 bytes past alignment or
+   0 / 1 / 3 mixed, destination rows among rows that must stay as they
+   were), then at phase 7's load layouts with domains (1, 5) and (1, 2)
+   lost (3,451 stripes of 256 KiB from `place_stripes`: the blob's
+   windows and the spare rows of random bytes), each bit for bit over
+   every buffer and the full-width ones timed beside their bound, the
+   per-stripe launches they replace and the plain version's checking
+   call; the two-row folds (`xor_reduce_words`,
    the grouped fold at G=4 K=2) and their `torch.bitwise_xor` yardstick
    in turns, each by the profiler (the means of two windows: fold,
    yardstick, yardstick, fold) and the yardstick by events too; the
@@ -96,8 +108,12 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    compared with the state in memory byte for byte on the card; the
    counters are set to 0 just before the run and each load and read
    just after: the run launches one `gf256_matmul_bytes` per save and one
-   per stripe that lost a data block, each load one per such stripe
-   (3,451 and 1,725 at full width), no other kernel and no bit-slicing;
+   `gf256_reconstruct_stripes` for the repair of every stripe that lost
+   a data block, each load one `gf256_reconstruct_stripes` (repairing
+   1,725 and 3,451 stripes at full width), no other kernel and no
+   bit-slicing; each load's stages (read and CRC, h2d, repair, assemble)
+   and its peak device memory above what was held before it (against the
+   state's bytes) are printed;
    the loss of one more step from the restored state must equal the
    in-memory state's within 1e-5; prints each step's loss, time and
    tokens/s, each save's stages (snapshot, layout, encode, device-to-host
@@ -130,7 +146,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    reported only; the greedy tokens equal wherever the card's top-2
    margin exceeds twice the tolerance (the tolerances and their reasons
    are at `SERVE_EQUIV` / `SERVE_CPU`);
-   8e. the eight kernels' launch counters, set to 0 before 8a and read
+   8e. the nine kernels' launch counters, set to 0 before 8a and read
    after it and after 8d: serving launches none of them;
 9. the other model families (`models/{rwkv6,mamba2,zamba2,whisper}.py`,
    their serve steps and the trainer; plain PyTorch on the card, no kernel
@@ -160,7 +176,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    T=1,024; its full depth's params, gradients and moments need 8.4e10
    bytes): finite losses, changed params, step times, peak memory and one
    more step traced;
-   9e. the eight kernels' launch counters, set to 0 before 9a and read
+   9e. the nine kernels' launch counters, set to 0 before 9a and read
    after 9d: none;
 10. the multi-device half (`models/sharding.py` on DTensors,
    `launch/mesh.py`, `ft/elastic.py`, `launch/dryrun.py`):
@@ -171,12 +187,13 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    (the losses within `MESH_LOSS_TOL`; every leaf a DTensor on the
    card); the DTensor state's EC checkpoint (leaves gathered whole) is
    byte-equal to the plain save of the same values; domains (1, 5) are
-   lost and the load repairs through `gf256_matmul_bytes`, one launch a
-   stripe that lost data (the counters set to 0 before the saves and
+   lost and the load repairs through one `gf256_reconstruct_stripes`
+   launch (the counters set to 0 before the saves and
    the load and read after each); `reshard_state` onto a fresh mesh and
    one more step, whose loss equals the no-mesh resume's;
    10b. `launch/dryrun.py` at production size, each cell in its own
-   process, all at once, started before 10a and run beside it:
+   process, all at once, started after phase 2 and run beside phases 3
+   to 11 (their results read after 11):
    smollm_360m train_4k on the (16, 16) and (2, 16, 16) meshes,
    qwen2_15b decode_32k and grok1_314b train_4k on (16, 16), over fake
    256- and 512-rank worlds and fake tensors on the card's device type
@@ -186,10 +203,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    datasheet constants) and seconds; fails if a cell does not fit the
    card's 80e9 bytes;
 11. the port's example programs (`examples/torch_*.py`), run after 10a
-   and beside 10b's cells (host work in other processes): each imported
+   (beside 10b's cells, host work in other processes): each imported
    in this process and its `main(device="cuda")` called under
    `contextlib.redirect_stdout`, its output echoed and its wall time
-   kept, the eight kernels' launch counters set to 0 just before and read
+   kept, the nine kernels' launch counters set to 0 just before and read
    just after. Fails if the repair demo does not print `byte-exact:
    True` or launches other than one `gf256_matmul_bytes` for the encode
    and one a helper and one `xor_reduce_words` a helper but the first of
@@ -197,13 +214,16 @@ Phases (any failure is an uncaught exception and a non-zero exit):
    a batch ran on the host steppers; if the quickstart does not repair 4
    blocks across 4 stripes or resume at step 61; if a model example
    prints a loss that is not finite; if an EC example launches other than
-   one `gf256_matmul_bytes` a save and one a stripe that lost data (the
-   saves and the repairs counted at `ECCheckpointer`); or if any other
-   example launches one of the eight kernels (the device sweep launches
+   one `gf256_matmul_bytes` a save and one `gf256_reconstruct_stripes` a
+   load that repaired (the saves and the repairs counted at
+   `ECCheckpointer`); or if any other
+   example launches one of the nine kernels (the device sweep launches
    one event-loop kernel per device engine call).
 
-The second-to-last line is the kernels' JSON record, the last line
-`{"ok": true, "device": {...}}`. `--json PATH` also writes every record.
+Each phase's wall seconds are printed as `{"phase_wall_s": {...}}` after
+phase 11. The second-to-last line is the kernels' JSON record, the last
+line `{"ok": true, "device": {...}}`. `--json PATH` also writes every
+record.
 """
 from __future__ import annotations
 
@@ -223,6 +243,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -235,6 +256,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.checkpoint import ECCheckpointer  # noqa: E402
+from repro_torch.checkpoint import ec_checkpoint  # noqa: E402
 from repro_torch.core import executor, topology  # noqa: E402
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel  # noqa: E402
 from repro_torch.core.engine import dataplane, device_stepper  # noqa: E402
@@ -251,6 +273,7 @@ from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels.build import load_library  # noqa: E402
 from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,  # noqa: E402
                                               gf256_matmul_planes,
+                                              gf256_reconstruct_stripes,
                                               gf256_scale_bytes,
                                               gf256_scale_planes)
 from repro_torch.kernels.xor_reduce import (chain_plan,  # noqa: E402
@@ -314,6 +337,12 @@ TRAIN_ARGS = ["--arch", "smollm_360m", "--full", "--seq-len", "1024",
 CKPT_BYTES = 5.43e9
 CKPT_STRIPES, CKPT_CHUNK = 3451, 1 << 18
 TRAIN_LOSSES = ((3,), (1, 5))      # domains lost by the two checked loads
+# phase 2: the batched reconstruct at phase 7's load layouts with these
+# domains lost (one lost data block a stripe; one or two mixed), and the
+# RS(6,4) repair patterns of its small batches, f = 1 and 2
+STRIPE_LOSSES = ((1, 5), (1, 2))
+STRIPE_PATTERNS = (((1,), (0, 2, 3, 4)), ((0, 1), (2, 3, 4, 5)),
+                   ((3,), (0, 1, 2, 4)), ((2, 3), (0, 1, 4, 5)))
 # the traced train step's kernels by kind (cuBLAS fp32 GEMMs are the
 # unembedding's; its bf16 GEMMs are the `nvjet` / `cutlass` ones)
 TRAIN_STEP_GROUPS = (
@@ -465,6 +494,10 @@ KERNELS = {
     "gf256_scale_bytes": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/gf256_matmul.cu",
         replaces="src/repro/kernels/gf256_matmul.py:74"),
+    # the checkpoint load's per-stripe products, all stripes in one launch
+    "gf256_reconstruct_stripes": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/gf256_matmul.cu",
+        replaces="src/repro/kernels/gf256_matmul.py:40"),
     # the jitted device programs of the JAX package's sweep (not Pallas)
     "round_events": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/event_loop.cu",
@@ -479,6 +512,7 @@ WRAPPERS = {"gf256_matmul_planes": gf256_matmul_planes,
             "xor_reduce_groups_words": xor_reduce_groups_words,
             "gf256_matmul_bytes": gf256_matmul_bytes,
             "gf256_scale_bytes": gf256_scale_bytes,
+            "gf256_reconstruct_stripes": gf256_reconstruct_stripes,
             "round_events": event_loop.round_events,
             "pipeline_events": event_loop.pipeline_events}
 EVENT_LOOPS = ("round_events", "pipeline_events")
@@ -567,9 +601,12 @@ def kernel_device_ms(fn, label: str, reps: int = REPS,
     Returns it with the number of profiled windows it took.
 
     The profiler now and then loses an activity record (one kernel of 20
-    missing, seen on an H100). A window that shows fewer kernels than calls
-    is profiled again, up to `attempts` windows; only a window with exactly
-    one kernel per call is timed. More kernels than calls is a fault of the
+    missing, seen on an H100; on one machine one of every window, as if
+    the window's first launch came before the profiler took records). So
+    a window makes one call more than it times, first, and times the last
+    `reps` of the kernels it shows, which are `reps` calls of `fn` with one
+    record lost or none. A window that shows fewer is profiled again, up
+    to `attempts` windows. More kernels than calls is a fault of the
     wrapper or the label and raises at once."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -579,20 +616,21 @@ def kernel_device_ms(fn, label: str, reps: int = REPS,
     for attempt in range(1, attempts + 1):
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps + 1):
                 fn()
             torch.cuda.synchronize()
-        times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA
-                 and label in ev.name]
-        if len(times) > reps:
+        kernels = sorted((ev.time_range.start, ev.time_range.elapsed_us())
+                         for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA
+                         and label in ev.name)
+        if len(kernels) > reps + 1:
             raise AssertionError(
-                f"{len(times)} '{label}' kernels in {reps} calls")
-        if len(times) == reps:
-            return sum(times) / reps, attempt
-        seen.append(len(times))
-    raise AssertionError(f"'{label}' kernels in {attempts} windows of {reps} "
-                         f"calls: {seen}")
+                f"{len(kernels)} '{label}' kernels in {reps + 1} calls")
+        if len(kernels) >= reps:
+            return sum(us for _, us in kernels[-reps:]) / reps / 1e3, attempt
+        seen.append(len(kernels))
+    raise AssertionError(f"'{label}' kernels in {attempts} windows of "
+                         f"{reps + 1} calls: {seen}")
 
 
 def kernel_times(fn, label: str) -> dict:
@@ -984,6 +1022,132 @@ def time_xor(peaks, k, form) -> dict:
     return rec
 
 
+def bytes_err(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 28) -> int:
+    """`max_abs_err` of two uint8 tensors of any size, a chunk at a time
+    (no int64 copy of several GB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return max((max_abs_err(a[i: i + chunk], b[i: i + chunk])
+                for i in range(0, a.numel(), chunk)), default=0)
+
+
+def small_stripe_batches(device="cuda", stripes=(1, 4, 37),
+                         sizes=(4096, 4099), seed=19):
+    """Phase 2's small batches of `gf256_reconstruct_stripes`, from a
+    seeded generator, laid out as a checkpoint load lays them out: RS(6,4)
+    patterns (`STRIPE_PATTERNS`) with one and two lost rows mixed, rows of
+    `sizes` bytes, in a byte space of two buffers. The first (the blob)
+    holds a stripe's first k - f helpers and, at scattered even slots of
+    its second half, its f lost rows, whose odd slots and tail must stay
+    as they were; the second (the spare rows) its last f helpers. Helper
+    rows lie all aligned, all 3 bytes past 16-byte alignment (the lost
+    rows too: a scalar head and tail around the vectors) or 0, 1 and 3
+    past it mixed. Yields (label, plan, bufs, n), the plan an
+    `ec_checkpoint.StripeRepair` whose offsets index the buffers'
+    concatenation."""
+    code = RSCode(6, 4)
+    coeffs = [code.repair_coeffs(*pat) for pat in STRIPE_PATTERNS]
+    rng = np.random.default_rng(seed)
+    for count in stripes:
+        for n in sizes:
+            for misalign in ((0,), (3,), (0, 1, 3)):
+                patterns = rng.integers(0, len(coeffs), size=count)
+                patterns[: min(count, 2)] = [0, 1][: min(count, 2)]
+                slot = -(-n // 16) * 16 + 16
+                blob = (count * code.k + 2 * count * code.m) * slot + 7
+                order = rng.permutation(count * code.m)
+                src_off = np.zeros((count, code.k), dtype=np.int64)
+                dst_off = np.full((count, code.m), -1, dtype=np.int64)
+                spare = 0
+                for s, pat in enumerate(patterns):
+                    f = coeffs[pat].shape[0]
+                    for i in range(code.k):
+                        at = misalign[(s + i) % len(misalign)]
+                        if i < code.k - f:
+                            src_off[s, i] = (s * code.k + i) * slot + at
+                        else:
+                            src_off[s, i] = blob + spare * slot + at
+                            spare += 1
+                    for o in range(f):
+                        dst_off[s, o] = ((count * code.k
+                                          + 2 * order[s * code.m + o]) * slot
+                                         + misalign[0])
+                bufs = [torch.from_numpy(rng.integers(
+                    0, 256, size=size, dtype=np.uint8)).to(device)
+                    for size in (blob, spare * slot + 16)]
+                plan = ec_checkpoint.StripeRepair(
+                    coeffs, patterns, src_off, dst_off, [],
+                    int((dst_off >= 0).sum()), None)
+                yield (f"S={count} n={n} misalign={misalign}", plan, bufs, n)
+
+
+def load_layout(lost: tuple, seed: int):
+    """Phase 7's load with domains `lost` lost, as `ECCheckpointer.load`
+    lays it out on the card: `CKPT_STRIPES` RS(6,4) stripes of
+    `CKPT_CHUNK` bytes on 8 domains (`place_stripes`), the blob in windows
+    of `ec_checkpoint.WINDOW_BYTES` and the spare rows, all random bytes,
+    and `ec_checkpoint.plan_repair`'s plan. Returns (plan, bufs)."""
+    code = RSCode(6, 4)
+    stripes = stripe_lib.place_stripes(CKPT_STRIPES, code, 8)
+    alive = {(s.stripe_id, b) for s in stripes
+             for b, node in enumerate(s.node_ids) if node not in lost}
+    plan = ec_checkpoint.plan_repair(code, stripes, alive, CKPT_CHUNK)
+    rows = CKPT_STRIPES * code.k
+    per_window = ec_checkpoint.WINDOW_BYTES // CKPT_CHUNK
+    sizes = [min(per_window, rows - w) * CKPT_CHUNK
+             for w in range(0, rows, per_window)]
+    return plan, [device_bytes(seed + i, (size,)) for i, size in
+                  enumerate(sizes + [len(plan.spare) * CKPT_CHUNK])]
+
+
+def check_stripes(peaks, label: str, plan, bufs: list, n: int,
+                  per_stripe: dict | None = None) -> dict:
+    """`gf256_reconstruct_stripes` on one batch against its plain version,
+    bit for bit over every buffer (the destination rows and every byte
+    around them). With `per_stripe` ({f: phase 2's `gf256_matmul_bytes`
+    record at (f, 4) x n}) it is timed: `ms` by the profiler, `plain_ms`
+    the checking call of the plain version by events, the bound (each row
+    read or written once, the column words once, 2 LOP3 a byte of an
+    (output, input) pair), and `per_stripe_ms`, the per-stripe launches
+    it replaces (one `gf256_matmul_bytes` a stripe at its f) at their
+    profiled times."""
+    def kernel(out):
+        return gf256_reconstruct_stripes(plan.coeffs, plan.patterns, out,
+                                         plan.src_off, plan.dst_off, n)
+
+    got = kernel([t.clone() for t in bufs])
+    want = [t.clone() for t in bufs]
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ref.gf256_reconstruct_stripes_ref(plan.coeffs, plan.patterns, want,
+                                      plan.src_off, plan.dst_off, n)
+    end.record()
+    end.synchronize()
+    fs = np.array([plan.coeffs[p].shape[0] for p in plan.patterns])
+    k = plan.src_off.shape[1]
+    rec = dict(kernel="gf256_reconstruct_stripes", shape=label,
+               stripes=len(fs), patterns=len(plan.coeffs),
+               outputs_per_stripe=np.bincount(fs).tolist(),
+               max_abs_err=max(bytes_err(a, b) for a, b in zip(got, want)))
+    if rec["max_abs_err"] != 0:
+        raise AssertionError(f"gf256_reconstruct_stripes disagrees: {rec}")
+    del got, want
+    if per_stripe is not None:
+        pairs = int(fs.sum()) * k
+        nbytes = n * int((k + fs).sum()) + 32 * pairs
+        bms, by = bound(nbytes, 2 * pairs * n, peaks)
+        rec.update(**kernel_times(lambda: kernel(bufs),
+                                  "gf256_reconstruct_stripes"),
+                   plain_ms=start.elapsed_time(end),
+                   bound_ms=bms, bound_by=by, bytes=nbytes, lop3_ops=2 * pairs * n,
+                   library_ms=None,
+                   per_stripe_launches=len(fs),
+                   per_stripe_ms=float(sum(per_stripe[f]["ms"] for f in fs)))
+    return rec
+
+
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -1028,24 +1192,34 @@ def profile_repair(repair, phase: str = "profile_repair",
     """One repair under torch.profiler: device kernel time by label, and the
     device's idle share of the repair's wall time (one stream: kernels do
     not overlap, so busy time is their sum). Raises if a label of `forbid`
-    or of the bit-slicing shows."""
+    or of the bit-slicing shows.
+
+    The profiler was seen to lose every activity record of a window on an
+    H100 (the repair synchronises, and ran its kernels); a window that
+    shows no device time is profiled again with another repair (the same
+    bytes), up to `PROFILE_ATTEMPTS` windows, and only then raises."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        tic = time.perf_counter()
-        repair()
-        wall_ms = (time.perf_counter() - tic) * 1e3
-    by_label: dict[str, float] = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        label = next((lb for lb in KERNEL_LABELS if lb in ev.name), "other")
-        by_label[label] = (by_label.get(label, 0.0)
-                           + ev.time_range.elapsed_us() / 1e3)
-    busy_ms = sum(by_label.values())
-    if busy_ms <= 0:
-        raise AssertionError("profiled repair shows no device time")
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            tic = time.perf_counter()
+            repair()
+            wall_ms = (time.perf_counter() - tic) * 1e3
+        by_label: dict[str, float] = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            label = next((lb for lb in KERNEL_LABELS if lb in ev.name),
+                         "other")
+            by_label[label] = (by_label.get(label, 0.0)
+                               + ev.time_range.elapsed_us() / 1e3)
+        busy_ms = sum(by_label.values())
+        if busy_ms > 0:
+            break
+    else:
+        raise AssertionError(f"{phase}: no device time in "
+                             f"{PROFILE_ATTEMPTS} profiled repairs")
     packing = sorted(set(by_label) & set(PACK_LABELS))
     if packing:
         raise AssertionError(f"{phase}: bit-slicing ops on the card: "
@@ -1116,7 +1290,8 @@ def main_path(records: list) -> dict:
             or launches["xor_reduce_words"] != helpers - len(bmf.plan.jobs)
             or launches["gf256_matmul_planes"] or launches["gf256_scale_planes"]
             or launches["gf256_scale_bytes"]
-            or launches["xor_reduce_groups_words"]):
+            or launches["xor_reduce_groups_words"]
+            or launches["gf256_reconstruct_stripes"]):
         raise AssertionError(f"serial path launches {launches}")
 
     encode_steady = []            # the counted first call also grew the allocator
@@ -1904,7 +2079,8 @@ def plain_event_loops():
 def lost_data_stripes(num_stripes: int, lost: tuple) -> int:
     """Stripes of an RS(6,4) checkpoint on 8 domains that lose a data
     block with the domains `lost` (the RAID-5 rotation of
-    `ec/stripe.py`): the repair launches one reconstruct for each."""
+    `ec/stripe.py`): the stripes a load repairs, all in one launch of
+    `gf256_reconstruct_stripes`."""
     code = RSCode(6, 4)
     return sum(any(s.node_ids[b] in lost for b in range(code.k))
                for s in stripe_lib.place_stripes(num_stripes, code, 8))
@@ -1977,11 +2153,11 @@ def train_phase(records: list, enc: dict, device: str = "cuda") -> dict:
             raise AssertionError(f"phase 7: {stripes} stripes of "
                                  f"{manifest['chunk_bytes']} bytes, phase 2 "
                                  f"timed {CKPT_STRIPES} of {CKPT_CHUNK}")
-        # the run: one encode a save, one reconstruct a stripe that lost
-        # a data block at the injected failure
+        # the run: one encode a save, one reconstruct of every stripe that
+        # lost a data block at the injected failure
         want = {k: 0 for k in WRAPPERS}
-        want["gf256_matmul_bytes"] = len(saves) + lost_data_stripes(
-            stripes, (1, 5))
+        want["gf256_matmul_bytes"] = len(saves)
+        want["gf256_reconstruct_stripes"] = 1
         if (run_launches != want
                 or repair["stripes_repaired"] != lost_data_stripes(stripes,
                                                                    (1, 5))
@@ -1994,17 +2170,25 @@ def train_phase(records: list, enc: dict, device: str = "cuda") -> dict:
                 for d in st.node_ids}
         loads, restored = {}, None
         for lost in TRAIN_LOSSES:
+            restored = None
             reset_launches()
+            torch.cuda.synchronize()
+            held_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             tic = time.perf_counter()
             restored, report = ck.load(state, lost_domains=lost)
             torch.cuda.synchronize()
             wall = time.perf_counter() - tic
+            # the load's own peak: what it allocated above what was held
+            # before it (the template state among it), its leaves included
+            load_peak = torch.cuda.max_memory_allocated() - held_bytes
             launches = read_launches()
             want = {k: 0 for k in WRAPPERS}
-            want["gf256_matmul_bytes"] = lost_data_stripes(stripes, lost)
+            want["gf256_reconstruct_stripes"] = 1
+            repaired = lost_data_stripes(stripes, lost)
             if (launches != want
-                    or report.blocks_repaired != want["gf256_matmul_bytes"]
-                    or report.stripes_repaired != want["gf256_matmul_bytes"]
+                    or report.blocks_repaired != repaired
+                    or report.stripes_repaired != repaired
                     or report.lost_domains != tuple(
                         sorted(set(lost) | (set(range(8)) - held)))
                     or not (report.sim and report.sim.total_time > 0)):
@@ -2014,13 +2198,20 @@ def train_phase(records: list, enc: dict, device: str = "cuda") -> dict:
                 raise AssertionError(f"phase 7 load {lost}: a leaf differs "
                                      "from the state in memory")
             loads[str(lost)] = dict(
-                launches=launches["gf256_matmul_bytes"],
+                launches={k: v for k, v in launches.items() if v},
                 blocks_repaired=report.blocks_repaired,
                 stripes_repaired=report.stripes_repaired,
                 sim_total_time=float(report.sim.total_time),
                 repair_wall_s=report.wall_seconds, load_wall_s=wall,
-                stages_s=dict(ck.last_load))
+                stages_s=dict(ck.last_load), peak_bytes=load_peak,
+                peak_over_state=load_peak / manifest["total_bytes"])
             print(f"   load {lost}: {json.dumps(loads[str(lost)])}")
+            print(f"   load {lost} peak device memory: {load_peak} bytes "
+                  f"above the {held_bytes} held before it, "
+                  f"{load_peak / manifest['total_bytes']:.4f} x the state's "
+                  f"{manifest['total_bytes']} bytes")
+            print(f"   load {lost} stages: " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in ck.last_load.items()))
 
         # resume: one more step from the restored state and from the state
         # in memory, on the same batch; the forward pass is deterministic
@@ -2058,7 +2249,8 @@ def train_phase(records: list, enc: dict, device: str = "cuda") -> dict:
                                max_abs_err=enc["max_abs_err"]),
             profile=traced,
             launches={"run": run_launches,
-                      **{f"load_{lost}": v["launches"]
+                      **{f"load_{lost}": {k: v["launches"].get(k, 0)
+                                          for k in WRAPPERS}
                          for lost, v in loads.items()}},
             phase_s=time.perf_counter() - start)
         print(json.dumps(rec))
@@ -2738,9 +2930,10 @@ def mesh_train(records: list, device: str = "cuda") -> dict:
         load_s = time.perf_counter() - tic
         load_launches = read_launches()
         want = {k: 0 for k in WRAPPERS}
-        want["gf256_matmul_bytes"] = lost_data_stripes(stripes, MESH_LOST)
+        want["gf256_reconstruct_stripes"] = 1
         if (load_launches != want
-                or report.stripes_repaired != want["gf256_matmul_bytes"]):
+                or report.stripes_repaired != lost_data_stripes(stripes,
+                                                                MESH_LOST)):
             raise AssertionError(f"phase 10a load: launches {load_launches}"
                                  f" != {want}, {report}")
         if not same_bytes(restored, whole):
@@ -2768,7 +2961,8 @@ def mesh_train(records: list, device: str = "cuda") -> dict:
                    mesh_step_s=step_s, save_s=save_s, load_s=load_s,
                    num_stripes=stripes, files_equal=True,
                    save_launches=save_launches["gf256_matmul_bytes"],
-                   load_launches=load_launches["gf256_matmul_bytes"],
+                   load_launches=load_launches["gf256_reconstruct_stripes"],
+                   load_stages_s=dict(ck.last_load),
                    stripes_repaired=report.stripes_repaired,
                    resume_loss=dict(mesh=resumed, plain=resumed_plain),
                    launches={"saves": save_launches, "load": load_launches},
@@ -2809,18 +3003,25 @@ def dryrun_phase(records: list, device: str = "cuda", during=None) -> dict:
                                                       device),
                                            cwd=root, env=env, stdout=log,
                                            stderr=subprocess.STDOUT)))
+        ended = {}                  # each process's own seconds
+
+        def watch(i: int, tic: float, proc) -> None:
+            proc.wait()
+            ended[i] = time.perf_counter() - tic
+
+        watchers = [threading.Thread(target=watch, args=(i, tic, proc),
+                                     daemon=True)
+                    for i, (*_, tic, _, proc) in enumerate(procs)]
+        for w in watchers:
+            w.start()
         if during is not None:
             during()
-        ended = {}                  # each process's own seconds
         deadline = start + DRYRUN_TIMEOUT_S
-        while len(ended) < len(procs):
-            for i, (*_, tic, _, proc) in enumerate(procs):
-                if i not in ended and proc.poll() is not None:
-                    ended[i] = time.perf_counter() - tic
-            if len(ended) < len(procs) and time.perf_counter() > deadline:
-                raise AssertionError(f"phase 10b: cells still running after "
-                                     f"{DRYRUN_TIMEOUT_S} s")
-            time.sleep(0.5)
+        for w in watchers:
+            w.join(timeout=max(0.0, deadline - time.perf_counter()))
+        if len(ended) < len(procs):
+            raise AssertionError(f"phase 10b: cells still running after "
+                                 f"{DRYRUN_TIMEOUT_S} s")
         for i, (arch, shape, mesh, tic, log, proc) in enumerate(procs):
             rc, seconds = proc.returncode, ended[i]
             log.close()
@@ -2876,19 +3077,11 @@ def dryrun_phase(records: list, device: str = "cuda", during=None) -> dict:
 
 
 def mesh_phase(records: list, device: str = "cuda", then=None) -> dict:
-    """Phase 10: 10b's cells started, 10a run beside them (the cells are
-    host work in other processes), then `then()` (phase 11) beside them
-    too, then 10b's results; returns {"launches": 10a's, "then": what
-    `then()` returned}."""
-    train, after = {}, {}
-
-    def during():
-        train.update(mesh_train(records, device))
-        if then is not None:
-            after.update(then())
-
-    dryrun_phase(records, device, during=during)
-    return {"launches": train["launches"], "then": after}
+    """Phase 10a, then `then()` (phase 11); returns {"launches": 10a's,
+    "then": what `then()` returned}."""
+    train = mesh_train(records, device)
+    return {"launches": train["launches"],
+            "then": then() if then is not None else {}}
 
 
 # phase 11: the port's example programs, in the order they were ported
@@ -2909,9 +3102,9 @@ def load_example(name: str):
 
 @contextlib.contextmanager
 def checkpoint_calls():
-    """Counts `ECCheckpointer` saves and the stripes its loads repair
-    while active."""
-    calls = {"saves": 0, "stripes_repaired": 0}
+    """Counts `ECCheckpointer` saves, the loads that repaired a stripe
+    and the stripes they repaired while active."""
+    calls = {"saves": 0, "repairs": 0, "stripes_repaired": 0}
     save, load = ECCheckpointer.save, ECCheckpointer.load
 
     def counted_save(self, *args, **kwargs):
@@ -2921,6 +3114,7 @@ def checkpoint_calls():
     def counted_load(self, *args, **kwargs):
         state, report = load(self, *args, **kwargs)
         calls["stripes_repaired"] += report.stripes_repaired
+        calls["repairs"] += report.stripes_repaired > 0
         return state, report
 
     ECCheckpointer.save, ECCheckpointer.load = counted_save, counted_load
@@ -2967,8 +3161,8 @@ def expected_launches(name: str, run: dict) -> dict:
         want["gf256_matmul_bytes"] = 1 + helpers
         want["xor_reduce_words"] = helpers - len(plan.jobs)
     elif name in EC_EXAMPLES:
-        want["gf256_matmul_bytes"] = (run["checkpoint"]["saves"]
-                                      + run["checkpoint"]["stripes_repaired"])
+        want["gf256_matmul_bytes"] = run["checkpoint"]["saves"]
+        want["gf256_reconstruct_stripes"] = run["checkpoint"]["repairs"]
     # one event-loop launch per device engine call (the device sweep)
     want["round_events"] = run["stepper"]["round_calls"]
     want["pipeline_events"] = run["stepper"]["pipeline_calls"]
@@ -3038,7 +3232,14 @@ def main() -> None:
     records: list = [dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
                           **peaks)]
 
+    # wall seconds of each phase, from the end of the one before it
+    marks = [("start", time.perf_counter())]
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
+
     lib = load_library()
+    mark("build")
     print(f"kernels built in {lib.build_seconds:.1f} s -> {lib.path}")
     print(lib.log)
 
@@ -3143,28 +3344,67 @@ def main() -> None:
     print(json.dumps(checkpoint_encode))
     records.append(checkpoint_encode)
     torch.cuda.empty_cache()
-    # phase 7's and 10a's loads: one reconstruct a stripe that lost data,
-    # (lost, 4) helper rows of 256 KiB, the kernel's most launched shape
+    # a load's reconstruct of one stripe, (lost, 4) helper rows of 256
+    # KiB: the launches one launch of the batched kernel replaces
+    per_stripe = {}
     for m in (1, 2):
-        rec = check_matmul_bytes(rng, peaks, m, 4, CKPT_CHUNK, True)
-        rec["path"] = "checkpoint load, one launch a stripe that lost data"
+        rec = per_stripe[m] = check_matmul_bytes(rng, peaks, m, 4, CKPT_CHUNK,
+                                                 True)
+        rec["path"] = ("a checkpoint load's per-stripe reconstruct, which "
+                       "the batched kernel replaces")
         print(json.dumps(rec))
         records.append(rec)
+    # phase 7's and 10a's loads: every stripe's reconstruct in one launch;
+    # the small mixed batches, then the full-width load layouts
+    for label, plan, bufs, n in small_stripe_batches("cuda"):
+        records.append(check_stripes(peaks, label, plan, bufs, n))
+    for i, lost in enumerate(STRIPE_LOSSES):
+        plan, bufs = load_layout(lost, 40 + 100 * i)
+        rec = check_stripes(peaks, f"load of {CKPT_STRIPES} stripes x "
+                            f"{CKPT_CHUNK} B, domains {lost} lost", plan, bufs,
+                            CKPT_CHUNK, per_stripe)
+        print(json.dumps(rec))
+        records.append(rec)
+        timed.setdefault("gf256_reconstruct_stripes", rec)   # (1, 5): phase 7's
+        del plan, bufs
+        torch.cuda.empty_cache()
     timed.update(event_loop_checks(records, peaks))
     for rec in records[1:]:
         if "kernel" in rec:
             errs[rec["kernel"]] = max(errs[rec["kernel"]], rec["max_abs_err"])
 
-    serial_launches = main_path(records)
-    small_checks(records)
-    batch_launches = [batched_path(records, b) for b in BATCHES]
-    sweep_launches = sweep_phase(records)
-    train = train_phase(records, checkpoint_encode)
-    train_launches = train["launches"]
-    serve_launches = serve_phase(records)["launches"]["phase"]
-    family_launches = family_phase(records)["launches"]
-    mesh = mesh_phase(records, then=lambda: examples_phase(records))
-    mesh_launches, examples_launches = mesh["launches"], mesh["then"]
+    mark("kernels")
+    got = {}
+
+    def paths() -> None:
+        """Phases 3 to 11, run beside 10b's dry-run cells (host work in
+        other processes)."""
+        got["serial"] = main_path(records)
+        small_checks(records)
+        got["batch"] = [batched_path(records, b) for b in BATCHES]
+        mark("serial_and_batched")
+        got["sweep"] = sweep_phase(records)
+        mark("sweep")
+        got["train"] = train_phase(records, checkpoint_encode)["launches"]
+        mark("train_checkpoint")
+        got["serve"] = serve_phase(records)["launches"]["phase"]
+        mark("serve")
+        got["families"] = family_phase(records)["launches"]
+        mark("families")
+        got["mesh"] = mesh_phase(records, then=lambda: examples_phase(records))
+        mark("mesh_and_examples")
+
+    dryrun_phase(records, during=paths)
+    mark("dryrun_wait")
+    serial_launches, batch_launches = got["serial"], got["batch"]
+    sweep_launches, train_launches = got["sweep"], got["train"]
+    serve_launches, family_launches = got["serve"], got["families"]
+    mesh_launches, examples_launches = (got["mesh"]["launches"],
+                                        got["mesh"]["then"])
+    walls = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    walls["total"] = marks[-1][1] - marks[0][1]
+    records.append(dict(phase="phase_wall_s", **walls))
+    print(json.dumps({"phase_wall_s": walls}))
     print(json.dumps({"launches": {"serial": serial_launches,
                                    **{f"batched_b{b}": lc for b, lc in
                                       zip(BATCHES, batch_launches)},
@@ -3175,13 +3415,16 @@ def main() -> None:
                                    "mesh": mesh_launches,
                                    "examples": examples_launches}}))
     # each kernel's launches on the path that runs it, the batched ones at
-    # B=4, the event loops' in phase 6 (a new dict: the phases' records
-    # keep their own counts); the plane kernels run on no path
+    # B=4, the event loops' in phase 6, the stripes' in phase 7's run (a
+    # new dict: the phases' records keep their own counts); the plane
+    # kernels run on no path
     launches = {**serial_launches,
                 **{k: batch_launches[0][k] for k in ("gf256_scale_planes",
                                                      "gf256_scale_bytes",
                                                      "xor_reduce_groups_words")},
-                **{k: sweep_launches[k] for k in EVENT_LOOPS}}
+                **{k: sweep_launches[k] for k in EVENT_LOOPS},
+                "gf256_reconstruct_stripes":
+                    train_launches["run"]["gf256_reconstruct_stripes"]}
 
     kernels = []
     for kname, meta in KERNELS.items():
@@ -3189,10 +3432,8 @@ def main() -> None:
         kernels.append(dict(
             name=kname, **meta, launches=launches[kname],
             launches_sweep=sweep_launches[kname],
-            launches_checkpoint={
-                "run": train_launches["run"][kname],
-                **{k: (v if kname == "gf256_matmul_bytes" else 0)
-                   for k, v in train_launches.items() if k != "run"}},
+            launches_checkpoint={k: v[kname]
+                                 for k, v in train_launches.items()},
             launches_serve=serve_launches[kname],
             launches_families=family_launches[kname],
             launches_mesh={k: v[kname] for k, v in mesh_launches.items()},
@@ -3206,7 +3447,9 @@ def main() -> None:
             **({k: t[k] for k in ("steps", "us_per_step", "max_rel_err",
                                   "chain_floor_ms", "routes")}
                if kname in EVENT_LOOPS else {}),
-            **({"launch_route": t["route"]} if kname in EVENT_LOOPS else {})))
+            **({"launch_route": t["route"]} if kname in EVENT_LOOPS else {}),
+            **({k: t[k] for k in ("per_stripe_ms", "per_stripe_launches")}
+               if kname == "gf256_reconstruct_stripes" else {})))
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     if args.json:

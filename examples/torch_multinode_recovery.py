@@ -5,8 +5,8 @@ elastically resumes. Also demos the straggler monitor.
     PYTHONPATH=src python examples/torch_multinode_recovery.py [--device cpu]
 
 The state, the checkpoint's encode and its repair live on the card
-(`gf256_matmul_bytes`: one launch a save, one for each stripe that lost
-data) unless `--device cpu` runs the plain PyTorch path; without a card
+(`gf256_matmul_bytes`: one launch a save; `gf256_reconstruct_stripes`:
+one launch a load that repairs, for all its stripes) unless `--device cpu` runs the plain PyTorch path; without a card
 it raises. The initial params are drawn from a `torch.Generator`, so the
 losses differ from the JAX package's example; the control flow, the
 saves, the repair and its pricing are the same.

@@ -5,8 +5,8 @@ resume — on the card.
     PYTHONPATH=src python examples/torch_quickstart.py [--device cpu]
 
 The state, the checkpoint's encode and its repair live on the card
-(`gf256_matmul_bytes`: one launch for the save, one for each stripe that
-lost data) unless `--device cpu` runs the plain PyTorch path; without a
+(`gf256_matmul_bytes`: one launch for the save; `gf256_reconstruct_stripes`:
+one launch for the load's repair of every stripe that lost data) unless `--device cpu` runs the plain PyTorch path; without a
 card it raises. The initial params are drawn from a `torch.Generator`, so
 the losses differ from the JAX package's quickstart; the steps, the
 checkpoint and the repair are the same.

@@ -83,9 +83,9 @@ inline int cudaGetLastError() { return 0; }
 #define __host__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
-struct Dim { int x = 0; };
+struct Dim { int x = 0, y = 0; };
 struct EmuBlock {
   std::barrier<> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
@@ -103,7 +103,7 @@ struct EmuBlock {
     }
   }
 };
-inline thread_local Dim threadIdx, blockIdx, blockDim;
+inline thread_local Dim threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local EmuBlock* emu_block = nullptr;
 inline thread_local char* emu_smem = nullptr;
 inline thread_local uint64_t emu_calls = 0;   // this thread's warp intrinsics
@@ -231,6 +231,7 @@ void emu_launch(K kernel, int blocks, int threads, size_t smem, A... args) {
     for (int t = 0; t < threads; ++t)
       ts.emplace_back([&, t] {
         threadIdx.x = t; blockIdx.x = b; blockDim.x = threads;
+        gridDim.x = blocks; gridDim.y = 1;
         emu_block = &blk; emu_smem = mem.data();
         kernel(args...);
       });

@@ -22,10 +22,14 @@ plain tensors; `load` returns plain tensors on the template's devices,
 which `ft.elastic.reshard_state` places on a (new) mesh.
 
 Losing up to n-k domains is repaired in place: a corrupt or missing
-domain file counts as lost, every stripe that lost a data block is
-reconstructed by one `rs_reconstruct`, and the repair of the first such
-stripe is priced by the configured planner under the cluster's bandwidth
-process (msrepair+bmf by default, the paper's algorithms).
+domain file counts as lost, each surviving data block goes from the host
+to its row of the restored blob on the device and each parity block a
+repair reads to a spare row beside it, the lost data blocks of every
+stripe are reconstructed there by one `rs_reconstruct_stripes` launch
+straight into the blob, and the repair of the first such stripe is
+priced by the configured planner under the cluster's bandwidth process
+(msrepair+bmf by default, the paper's algorithms). The reference repairs
+stripe by stripe with the same rules and gets the same bytes.
 """
 from __future__ import annotations
 
@@ -87,6 +91,75 @@ def _block_order(stripes) -> dict[int, list[tuple[int, int]]]:
     return per_domain
 
 
+# the restored blob's device allocations ("windows"): whole rows, at
+# most this many bytes each, each freed once the leaves are copied out of
+# it, so a load holds about one state besides the template's
+WINDOW_BYTES = 64 << 20
+
+
+@dataclasses.dataclass
+class StripeRepair:
+    """A load's repair, planned on the host. Its byte space is the
+    restored blob (stripe-major data rows: block b of the r-th stripe at
+    row r k + b), then the spare rows, one a parity helper (`spare`, their
+    (stripe, block)s in order). For each stripe that lost a data block (in
+    stripe order): its pattern into `coeffs` (the (f, k) repair
+    coefficients of each (lost data blocks, helpers) pair), its helpers'
+    byte offsets (S, k) and its lost data blocks' (S, n-k; -1 past its
+    f)."""
+    coeffs: list
+    patterns: np.ndarray
+    src_off: np.ndarray
+    dst_off: np.ndarray
+    spare: list
+    blocks: int                          # data blocks repaired
+    first_lost: list | None              # the first such stripe's lost blocks
+
+
+def plan_repair(code: RSCode, stripes, alive: set, cb: int) -> StripeRepair:
+    """The reference's per-stripe rules for a load whose surviving
+    (stripe, block)s are `alive`: a stripe that lost a data block is
+    repaired from its first k surviving blocks; the first that lost more
+    than n-k raises the reference's error. A data helper is read in its
+    blob row, a parity helper in the next spare row."""
+    blob = len(stripes) * code.k * cb
+    pattern_of, coeffs, patterns, src_off, dst_off = {}, [], [], [], []
+    spare, blocks, first_lost = [], 0, None
+    for row, s in enumerate(stripes):
+        sid = s.stripe_id
+        lost_blocks = [b for b in range(code.n) if (sid, b) not in alive]
+        lost_data = [b for b in lost_blocks if b < code.k]
+        if not lost_data:
+            continue
+        if len(lost_blocks) > code.m:
+            raise RuntimeError(
+                f"stripe {sid}: {len(lost_blocks)} blocks lost, "
+                f"only {code.m} tolerable")
+        helpers = [b for b in range(code.n) if b not in lost_blocks][: code.k]
+        key = (tuple(lost_data), tuple(helpers))
+        if key not in pattern_of:
+            pattern_of[key] = len(coeffs)
+            coeffs.append(code.repair_coeffs(*key))
+        patterns.append(pattern_of[key])
+        offs = []
+        for b in helpers:
+            if b < code.k:
+                offs.append((row * code.k + b) * cb)
+            else:
+                offs.append(blob + len(spare) * cb)
+                spare.append((sid, b))
+        src_off.append(offs)
+        dst_off.append([(row * code.k + b) * cb for b in lost_data]
+                       + [-1] * (code.m - len(lost_data)))
+        blocks += len(lost_data)
+        first_lost = lost_blocks if first_lost is None else first_lost
+    return StripeRepair(
+        coeffs, np.array(patterns, dtype=np.int64),
+        np.array(src_off, dtype=np.int64).reshape(-1, code.k),
+        np.array(dst_off, dtype=np.int64).reshape(-1, code.m), spare, blocks,
+        first_lost)
+
+
 def _whole(leaf: torch.Tensor) -> torch.Tensor:
     """A leaf's whole value: a DTensor (a state on a mesh) is gathered
     from its shards, as the reference's `np.asarray` gathers a sharded
@@ -111,8 +184,10 @@ class ECCheckpointer:
         self._error: Exception | None = None
         # seconds of the last save's stages: snapshot (in `save`), then
         # layout, encode, d2h, crc and write (on the writer); and of the
-        # last load's: read (files and CRC), repair (the per-stripe
-        # loop), assemble (the blob and the leaves on their devices)
+        # last load's: read (files and CRC), h2d (the surviving data
+        # blocks to their blob rows, the parity helpers to spare rows),
+        # repair (planning and the reconstruct into the blob), assemble
+        # (the leaves on their devices)
         self.last_save: dict[str, float] = {}
         self.last_load: dict[str, float] = {}
         os.makedirs(cfg.directory, exist_ok=True)
@@ -139,8 +214,7 @@ class ECCheckpointer:
         save must land first)."""
         tic = time.perf_counter()
         blob, meta = self._flatten(state)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         snapshot_s = time.perf_counter() - tic
         self.wait()
         self.last_save = {"snapshot": snapshot_s}
@@ -171,9 +245,12 @@ class ECCheckpointer:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.cfg.directory, f"step_{step:08d}")
 
-    def _clock(self, stage: str, tic: float) -> float:
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _clock(self, stage: str, tic: float) -> float:
+        self._sync()
         toc = time.perf_counter()
         self.last_save[stage] = toc - tic
         return toc
@@ -243,27 +320,55 @@ class ECCheckpointer:
                  if x.startswith("step_") and not x.endswith(".tmp")]
         return max(steps) if steps else None
 
-    def _read_domains(self, d: str, manifest: dict,
-                      lost: set[int]) -> dict[int, np.ndarray]:
-        out = {}
+    def _host_buffer(self, nbytes: int) -> np.ndarray:
+        """Host memory the domain files are read into: pinned when they
+        go on to a card (one copy at the pinned rate, no staging of its
+        own), plain numpy on the CPU, where the tensor shares it."""
+        if self.device.type == "cuda":
+            return torch.empty(nbytes, dtype=torch.uint8,
+                               pin_memory=True).numpy()
+        return np.empty(nbytes, dtype=np.uint8)
+
+    def _read_domains(self, d: str, manifest: dict, lost: set[int],
+                      per_domain: dict) -> tuple[np.ndarray, dict[int, int]]:
+        """The surviving domain files in one host buffer, each at a slot
+        of its expected size, with each good domain's byte offset in it.
+        A lost, missing, short or corrupt (CRC) file counts as lost."""
+        cb = manifest["chunk_bytes"]
+        slots = {}
         for dom in range(manifest["num_domains"]):
-            if dom in lost:
-                continue
             path = os.path.join(d, f"domain_{dom}.bin")
-            if not os.path.exists(path):
-                continue
-            buf = np.fromfile(path, dtype=np.uint8)
-            if zlib.crc32(buf) != manifest["checksums"].get(str(dom)):
-                continue                        # corrupt domain == lost
-            out[dom] = buf
-        return out
+            size = len(per_domain.get(dom, ())) * cb
+            if (dom not in lost and os.path.exists(path)
+                    and os.path.getsize(path) == size):
+                slots[dom] = path
+        host = self._host_buffer(sum(len(per_domain[dom]) * cb
+                                     for dom in slots))
+        out, at = {}, 0
+        for dom, path in slots.items():
+            view = host[at: at + len(per_domain[dom]) * cb]
+            with open(path, "rb") as f:
+                got = f.readinto(memoryview(view))
+            if (got == view.size and zlib.crc32(view)
+                    == manifest["checksums"].get(str(dom))):
+                out[dom] = at
+            at += view.size
+        return host, out
 
     def load(self, template, *, step: int | None = None,
              lost_domains: tuple[int, ...] = ()) -> tuple[object, RepairReport]:
         """Restore a train state of `template`'s structure; repair any
         blocks on lost domains. Leaves come back on the template's
-        devices."""
-        cfg, code = self.cfg, self.code
+        devices.
+
+        The surviving domain files are read and CRC-checked on the host,
+        and the blob is assembled on `self.device`: each surviving data
+        block is copied to its row, each parity block a repair reads to a
+        spare row, and one `rs_reconstruct_stripes` launch writes every
+        lost data block into its row (none when nothing was lost). Each
+        leaf is then copied out of the blob, whose windows (`WINDOW_BYTES`)
+        are freed as the copies pass them."""
+        code = self.code
         tic = time.perf_counter()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -271,80 +376,92 @@ class ECCheckpointer:
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
-        lost = set(lost_domains)
-        domains = self._read_domains(d, manifest, lost)
-        missing = set(range(manifest["num_domains"])) - set(domains)
-
-        stripes = stripe_lib.place_stripes(
-            manifest["num_stripes"], code, manifest["num_domains"])
-        cb = manifest["chunk_bytes"]
-        per_domain_order = _block_order(stripes)
-
-        block_of: dict[tuple[int, int], np.ndarray] = {}
-        for dom, buf in domains.items():
-            for i, (sid, b) in enumerate(per_domain_order[dom]):
-                block_of[(sid, b)] = buf[i * cb: (i + 1) * cb]
+        num_stripes, cb = manifest["num_stripes"], manifest["chunk_bytes"]
+        stripes = stripe_lib.place_stripes(num_stripes, code,
+                                           manifest["num_domains"])
+        per_domain = _block_order(stripes)
+        host, bases = self._read_domains(d, manifest, set(lost_domains),
+                                         per_domain)
+        missing = set(range(manifest["num_domains"])) - set(bases)
 
         t0 = time.time()
         self.last_load = {"read": time.perf_counter() - tic}
         tic = time.perf_counter()
-        stripes_repaired = blocks_repaired = 0
+        plan = plan_repair(code, stripes,
+                           {blk for dom in bases for blk in per_domain[dom]},
+                           cb)
         sim_result = None
-        for s in stripes:
-            lost_blocks = [b for b in range(code.n)
-                           if (s.stripe_id, b) not in block_of]
-            lost_data = [b for b in lost_blocks if b < code.k]
-            if not lost_data:
-                continue
-            if len(lost_blocks) > code.m:
-                raise RuntimeError(
-                    f"stripe {s.stripe_id}: {len(lost_blocks)} blocks lost, "
-                    f"only {code.m} tolerable")
-            helpers = [b for b in range(code.n) if b not in lost_blocks][: code.k]
-            coeff = code.repair_coeffs(tuple(lost_data), tuple(helpers))
-            hblocks = torch.from_numpy(
-                np.stack([block_of[(s.stripe_id, b)] for b in helpers])
-            ).to(self.device)
-            rec = ops.rs_reconstruct(coeff, hblocks).cpu().numpy()
-            for i, b in enumerate(lost_data):
-                block_of[(s.stripe_id, b)] = rec[i]
-                blocks_repaired += 1
-            stripes_repaired += 1
-            if sim_result is None and self.bw is not None:
-                sim_result = self._price_repair(lost_blocks)
-
-        self.last_load["repair"] = time.perf_counter() - tic
+        if plan.first_lost is not None and self.bw is not None:
+            sim_result = self._price_repair(plan.first_lost)
+        plan_s = time.perf_counter() - tic
         tic = time.perf_counter()
-        blob = np.concatenate(
-            [block_of[(s.stripe_id, b)] for s in stripes for b in range(code.k)]
-        )[: manifest["total_bytes"]]
-        state = self._unflatten(blob, manifest, template)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        rows = num_stripes * code.k
+        per_window = max(1, WINDOW_BYTES // cb)
+        windows = [torch.empty(min(per_window, rows - w) * cb,
+                               dtype=torch.uint8, device=self.device)
+                   for w in range(0, rows, per_window)]
+        spare = torch.empty(len(plan.spare) * cb, dtype=torch.uint8,
+                            device=self.device)
+        home = {(s.stripe_id, b): r * code.k + b
+                for r, s in enumerate(stripes) for b in range(code.k)}
+        home.update({blk: rows + j for j, blk in enumerate(plan.spare)})
+        files = torch.from_numpy(host)
+        for dom, base in bases.items():
+            for i, blk in enumerate(per_domain[dom]):
+                r = home.get(blk)
+                if r is None:
+                    continue
+                at = base + i * cb
+                row = (spare[(r - rows) * cb:][:cb] if r >= rows else
+                       windows[r // per_window][r % per_window * cb:][:cb])
+                row.copy_(files[at: at + cb], non_blocking=True)
+        self._sync()
+        del files, host
+        self.last_load["h2d"] = time.perf_counter() - tic
+        tic = time.perf_counter()
+        ops.rs_reconstruct_stripes(plan.coeffs, plan.patterns,
+                                   [*windows, spare], plan.src_off,
+                                   plan.dst_off, cb)
+        self._sync()
+        del spare
+        self.last_load["repair"] = plan_s + time.perf_counter() - tic
+        tic = time.perf_counter()
+        state = self._unflatten(windows, manifest, template)
+        self._sync()
         self.last_load["assemble"] = time.perf_counter() - tic
         report = RepairReport(
             lost_domains=tuple(sorted(missing)),
-            stripes_repaired=stripes_repaired,
-            blocks_repaired=blocks_repaired,
+            stripes_repaired=len(plan.patterns),
+            blocks_repaired=plan.blocks,
             sim=sim_result,
             wall_seconds=time.time() - t0,
         )
         return state, report
 
-    def _unflatten(self, blob: np.ndarray, meta: dict, template):
-        """The manifest's leaves from the blob's bytes, each on its
-        template leaf's device, in the template's structure."""
+    def _unflatten(self, windows: list, meta: dict, template):
+        """The manifest's leaves from the blob's bytes (`windows`, its
+        parts in order, all of one size but the last), each copied onto
+        its template leaf's device into storage of its own, in the
+        template's structure. A window is dropped from the list once the
+        copies have passed it."""
         devices = [leaf.device for leaf in tree.leaves(template)]
         if len(devices) != len(meta["shapes"]):
             raise ValueError(f"checkpoint holds {len(meta['shapes'])} leaves, "
                              f"the template {len(devices)}")
+        size = windows[0].numel()
         out, off = [], 0
         for shape, name, dev in zip(meta["shapes"], meta["dtypes"], devices):
             leaf = torch.empty(shape, dtype=DTYPES[name], device=dev)
             raw = leaf.view(-1).view(torch.uint8)
-            raw.copy_(torch.from_numpy(blob[off: off + raw.numel()]))
+            at = 0
+            while at < raw.numel():
+                w, lo = divmod(off + at, size)
+                take = min(raw.numel() - at, size - lo)
+                raw[at: at + take].copy_(windows[w][lo: lo + take])
+                at += take
             out.append(leaf)
             off += raw.numel()
+            windows[: off // size] = [None] * (off // size)
         return tree.unflatten(template, out)
 
     def _price_repair(self, lost_blocks: list[int]) -> SimResult:

@@ -106,6 +106,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gf256_matmul_bytes_launch.restype = i32
     lib.gf256_scale_bytes_launch.argtypes = [p, p, p, i32, i64, p]
     lib.gf256_scale_bytes_launch.restype = i32
+    lib.gf256_reconstruct_stripes_launch.argtypes = [p, p, p, i64, i32,
+                                                     i32, i64, p]
+    lib.gf256_reconstruct_stripes_launch.restype = i32
     _bind_event_loops(lib)
 
 

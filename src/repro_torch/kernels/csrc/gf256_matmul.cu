@@ -94,6 +94,49 @@
 // is skipped, since the output is a fresh allocation. For the scale each
 // block serves one row (its 8 column words), and the alignment is decided
 // per row.
+//
+// ---- The checkpoint load: every stripe's reconstruct in one launch.
+//
+// `gf256_reconstruct_stripes` is the same Pallas kernel's function
+// (`gf256_matmul_planes`, src/repro/kernels/gf256_matmul.py:40, which the
+// reference's load reaches once a stripe through `ops.rs_reconstruct`)
+// over a batch of S independent problems, rows read and written where
+// they lie:
+//
+//   *dst[s, o] [0, n) = XOR_i C[p(s), o, i] (*) *src[s, i] [0, n)
+//
+// for every stripe s and output o < f(s). One int64 record a stripe,
+// `rec` (S, k + fmax + 1): the byte offsets from one base address (the
+// lowest of the buffers') of its k source rows and of its fmax
+// destination rows (-1 past its f(s) outputs), and its repair pattern
+// p(s). At the checkpoint load the sources are surviving data rows of the
+// restored blob and parity rows staged beside it, the destinations the
+// blob's lost data rows. `cols` (P, fmax, k, 8) holds each pattern's
+// column words, zero past its f outputs.
+//
+// What bounds it on the H100: each of the S (k + f) rows is read or
+// written once, and a 4-byte word of a row costs 15 k + 8 f k integer ops
+// (as `gf256_matmul_bytes` at (f, k)): at the load's (1, 4) and (2, 4),
+// 92 and 124 ops against 20 and 24 bytes, close to the card's balance of
+// integer ops and bytes; the bytes bound it by a little.
+//
+// Design: the per-stripe launches it replaces were latency (64 blocks and
+// ~2.6 us a 256 KiB stripe, under half of the 132 SMs). Here one 1-D grid
+// walks (stripe, tile of the row), so gridDim.y never binds and every SM
+// has blocks: ~110k blocks of 256 threads at the load's 3,451 stripes. A
+// block stages its stripe's record and its pattern's f x k x 8 column
+// words in shared memory (two barriers a stripe), and decides the
+// stripe's alignment: all k + f rows alike mod 16 give 16-byte vectors
+// between a scalar head and tail, as in `gf_bytes_rows`; rows aligned
+// otherwise take 4-byte groups over the whole row. A tile's threads stride
+// over the row's items, so the rule lives in the kernel alone and the
+// blocks a stripe (one pass over the row's vectors) only set the
+// parallelism. A thread owns kVectors = 2 vectors kThreads apart
+// (coalesced) and issues the loads of up to kLoadBatch inputs of both
+// before it folds any, so each thread keeps kLoadBatch x 2 x 16 bytes in
+// flight. More than kMaxTile outputs are computed in tiles of kMaxTile
+// (the inputs read again, from L2). No TMA, `wgmma` or cluster: the work
+// is one pass over the bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,6 +144,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
+constexpr long long kMaxGridX = 2147483647;
 
 // acc[bi] ^= XOR_bj d[bj] & mask[bi, bj] for one 8x8 mask block in shared
 // memory: row bi as two 16-byte loads, the same address for every thread
@@ -180,12 +224,18 @@ constexpr int kMaxTile = 4;        // outputs per block in gf256_matmul_bytes
 // 0xFF in each byte of x whose bit bj is set, else 0x00: bit bj is shifted
 // to bit 7 of its byte, and `prmt` in its default mode with selector nibbles
 // 8, 9, A, B replicates the sign bit of byte n over byte n.
+// (The C form below the `prmt` is what the CPU emulation of this file,
+// scripts/emulate_stripe_repair.py, compiles: the same bytes.)
 __device__ __forceinline__ uint32_t bit_mask(uint32_t x, int bj) {
+#ifdef __CUDA_ARCH__
   uint32_t d;
   asm("prmt.b32 %0, %1, %2, %3;"
       : "=r"(d)
       : "r"(x << (7 - bj)), "r"(0u), "r"(0xBA98u));
   return d;
+#else
+  return (((x << (7 - bj)) >> 7) & 0x01010101u) * 0xFFu;
+#endif
 }
 
 // acc[t][q] ^= coeff[t] (*) x[q] for the MT outputs of a tile and NW words
@@ -310,6 +360,157 @@ gf256_scale_bytes_kernel(const uint32_t* __restrict__ cols,
   gf_bytes_rows<1>(scol, 1, row_in, out + (size_t)r * n, 1, n, head, n16);
 }
 
+constexpr int kLoadBatch = 4;      // inputs whose loads a thread issues together
+constexpr int kVectors = 2;        // 16-byte vectors a thread takes a pass
+
+// A thread's share of one pass over one stripe in
+// gf256_reconstruct_stripes: the MT outputs at byte offsets `doff` from
+// dst of the k inputs at `soff` from src, column words `scol` (MT, k, 8)
+// with stride k * 8 between outputs. The row's `items` are gf_bytes_rows': [0, n16) vectors
+// at head + 16 u, then the 4-byte groups of the head and of the tail. The
+// thread owns the items u0 + j * kThreads, j < kVectors.
+template <int MT>
+__device__ __forceinline__ void stripe_rows(
+    const uint32_t* scol, int k, const uint8_t* __restrict__ src,
+    const long long* soff, uint8_t* __restrict__ dst, const long long* doff,
+    long long n, long long head, long long n16, long long items,
+    long long u0) {
+  constexpr int V = kVectors;
+  if (u0 < n16) {
+    uint32_t acc[MT][4 * V];
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int q = 0; q < 4 * V; ++q) acc[t][q] = 0u;
+    for (int i0 = 0; i0 < k; i0 += kLoadBatch) {
+      uint4 v[kLoadBatch][V];
+#pragma unroll
+      for (int ii = 0; ii < kLoadBatch; ++ii) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const long long u = u0 + (long long)j * kThreads;
+          v[ii][j] = make_uint4(0u, 0u, 0u, 0u);
+          if (i0 + ii < k && u < n16)
+            v[ii][j] = *reinterpret_cast<const uint4*>(
+                src + soff[i0 + ii] + head + 16 * u);
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < kLoadBatch; ++ii) {
+        if (i0 + ii < k) {
+          uint32_t x[4 * V];
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            x[4 * j] = v[ii][j].x;
+            x[4 * j + 1] = v[ii][j].y;
+            x[4 * j + 2] = v[ii][j].z;
+            x[4 * j + 3] = v[ii][j].w;
+          }
+          fold_bytes<MT, 4 * V>(x, scol + (i0 + ii) * 8, k * 8, acc);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const long long u = u0 + (long long)j * kThreads;
+      if (u < n16) {
+#pragma unroll
+        for (int t = 0; t < MT; ++t) {
+          *reinterpret_cast<uint4*>(dst + doff[t] + head + 16 * u) =
+              make_uint4(acc[t][4 * j], acc[t][4 * j + 1], acc[t][4 * j + 2],
+                         acc[t][4 * j + 3]);
+        }
+      }
+    }
+  }
+  const long long tail_lo = head + 16 * n16;
+  const long long head_groups = (head + 3) / 4;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const long long u = u0 + (long long)j * kThreads;
+    if (u < n16 || u >= items) continue;
+    const long long g = u - n16;
+    const long long p = g < head_groups ? 4 * g : tail_lo + 4 * (g - head_groups);
+    const long long end = g < head_groups ? head : n;
+    const int cnt = (int)(end - p < 4 ? end - p : 4);
+    uint32_t acc[MT][1] = {};
+    for (int i = 0; i < k; ++i) {
+      const uint8_t* row = src + soff[i] + p;
+      uint32_t x[1] = {0u};
+      for (int b = 0; b < cnt; ++b) x[0] |= (uint32_t)row[b] << (8 * b);
+      fold_bytes<MT, 1>(x, scol + i * 8, k * 8, acc);
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      uint8_t* out = dst + doff[t] + p;
+      for (int b = 0; b < cnt; ++b) out[b] = (uint8_t)(acc[t][0] >> (8 * b));
+    }
+  }
+}
+
+// rec (S, k + fmax + 1) int64, cols (P, fmax, k, 8); src and dst are one
+// base address, the rows' offsets from it in rec (no byte is both read
+// and written, so each access path is the only one to its bytes). Block b
+// serves tile b % tiles of stripe b / tiles (a grid-stride loop past
+// gridDim.x), and the tile's threads stride over the stripe's items, so
+// `tiles` sets the parallelism and nothing else. Two blocks an SM: left
+// to itself ptxas gives the kernel more than 128 registers, so one block
+// an SM, and it ran markedly slower at the load's layouts on an H100.
+__global__ void __launch_bounds__(kThreads, 2)
+gf256_reconstruct_stripes_kernel(const uint32_t* __restrict__ cols,
+                                 const long long* __restrict__ rec,
+                                 const uint8_t* __restrict__ src,
+                                 uint8_t* __restrict__ dst, int k, int fmax,
+                                 long long n, long long tiles,
+                                 long long blocks) {
+  extern __shared__ __align__(16) uint32_t stripe_smem[];
+  uint32_t* scol = stripe_smem;                       // (f, k, 8)
+  long long* srec = reinterpret_cast<long long*>(stripe_smem + fmax * k * 8);
+  const int width = k + fmax + 1;
+  for (long long b = blockIdx.x; b < blocks; b += gridDim.x) {
+    const long long s = b / tiles;
+    const long long tile = b - s * tiles;
+    for (int j = threadIdx.x; j < width; j += blockDim.x)
+      srec[j] = rec[s * width + j];
+    __syncthreads();
+    int f = 0;
+    while (f < fmax && srec[k + f] >= 0) ++f;
+    const uint32_t* pc = cols + srec[width - 1] * fmax * k * 8;
+    for (int j = threadIdx.x; j < f * k * 8; j += blockDim.x) scol[j] = pc[j];
+    // one alignment class for all k + f rows, else 4-byte groups
+    const long long a = ((uintptr_t)src + srec[0]) % 16;
+    bool alike = true;
+    for (int i = 1; i < k + f; ++i)
+      alike &= ((uintptr_t)src + srec[i]) % 16 == a;
+    long long head = n, n16 = 0;
+    if (alike) {
+      head = (16 - a) % 16;
+      if (head > n) head = n;
+      n16 = (n - head) / 16;
+    }
+    const long long items = n16 + (head + 3) / 4 + (n - head - 16 * n16 + 3) / 4;
+    __syncthreads();
+    const long long step = tiles * kVectors * kThreads;
+    for (long long u0 = tile * kVectors * kThreads + threadIdx.x; u0 < items;
+         u0 += step) {
+      for (int o0 = 0; o0 < f; o0 += kMaxTile) {
+        const uint32_t* c = scol + o0 * k * 8;
+        const long long* d = srec + k + o0;
+#define STRIPE_ROWS(MT) \
+  stripe_rows<MT>(c, k, src, srec, dst, d, n, head, n16, items, u0)
+        switch (f - o0 < kMaxTile ? f - o0 : kMaxTile) {
+          case 1: STRIPE_ROWS(1); break;
+          case 2: STRIPE_ROWS(2); break;
+          case 3: STRIPE_ROWS(3); break;
+          default: STRIPE_ROWS(4);
+        }
+#undef STRIPE_ROWS
+      }
+    }
+    __syncthreads();          // the next stripe's record goes where this is
+  }
+}
+
 template <int MT>
 int launch_matmul_bytes(const uint32_t* cols, const uint8_t* in, uint8_t* out,
                         int m, int k, long long n, cudaStream_t stream) {
@@ -370,6 +571,35 @@ extern "C" int gf256_scale_bytes_launch(const void* cols, const void* in,
   dim3 grid((unsigned)M, (unsigned)(blocks < kMaxGridY ? blocks : kMaxGridY));
   gf256_scale_bytes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)cols, (const uint8_t*)in, (uint8_t*)out, n, vec);
+  return (int)cudaGetLastError();
+}
+
+// rec holds byte offsets from `base`: k source rows, fmax destination
+// rows (-1 past a stripe's f), then its pattern. A stripe takes enough
+// blocks for one pass over a row of 16-byte vectors.
+extern "C" int gf256_reconstruct_stripes_launch(const void* cols,
+                                                const void* rec, void* base,
+                                                long long stripes, int k,
+                                                int fmax, long long n,
+                                                void* stream) {
+  if (stripes <= 0 || k <= 0 || fmax <= 0 || n <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)fmax * k * 8 * sizeof(uint32_t) +
+                      (size_t)(k + fmax + 1) * sizeof(long long);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gf256_reconstruct_stripes_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long per_block = (long long)kVectors * kThreads;
+  const long long tiles = ((n + 15) / 16 + per_block - 1) / per_block;
+  const long long blocks = stripes * tiles;
+  const long long grid = blocks < kMaxGridX ? blocks : kMaxGridX;
+  cudaStream_t s = (cudaStream_t)stream;
+  gf256_reconstruct_stripes_kernel<<<(unsigned)grid, kThreads, smem, s>>>(
+      (const uint32_t*)cols, (const long long*)rec, (const uint8_t*)base,
+      (uint8_t*)base, k, fmax, n, tiles, blocks);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@ multiplication, in two layouts, both in `csrc/gf256_matmul.cu`:
   uint8 rows with no bit-slicing: column bj of the bit-matrix of c, read as
   a byte, is c (*) (1 << bj) (`coeff_to_columns`), and the kernel folds it
   under a mask of bit bj of every byte. The byte entry points in
-  `kernels/ops.py` run these.
+  `kernels/ops.py` run these; `gf256_reconstruct_stripes` runs the
+  product of each of a batch of stripes, its rows read and written where
+  they lie (the checkpoint load's repair, one launch a load).
 
 On a CUDA tensor a wrapper launches its hand-written kernel (built at
 first use by `kernels.build`); on a CPU tensor it takes its plain version
@@ -219,3 +221,161 @@ def gf256_scale_bytes(coeffs: np.ndarray, data: torch.Tensor) -> torch.Tensor:
 
 
 gf256_scale_bytes.launches = 0
+
+
+def byte_space(bufs) -> list:
+    """`bufs` (a sequence of 1-D uint8 tensors on one device) as the list
+    whose concatenation, in order, is the byte space that
+    `gf256_reconstruct_stripes`' offsets index."""
+    bufs = list(bufs)
+    if not bufs:
+        raise ValueError("no buffers")
+    for t in bufs:
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+            raise TypeError("buffers must be uint8 torch tensors")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError("buffers must be 1-D and contiguous")
+        if t.device != bufs[0].device:
+            raise ValueError(f"buffers on {bufs[0].device} and {t.device}")
+    return bufs
+
+
+def row_addresses(bufs: list, off: np.ndarray, n: int) -> np.ndarray:
+    """The addresses of the n-byte rows at byte offsets `off` of the byte
+    space `bufs` (-1 stays -1); raises where a row is not inside one
+    buffer."""
+    sizes = np.array([t.numel() for t in bufs], dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    ptrs = np.array([t.data_ptr() for t in bufs], dtype=np.int64)
+    live = off >= 0
+    at = np.where(live, off, 0)
+    j = np.clip(np.searchsorted(starts, at, side="right") - 1, 0,
+                len(bufs) - 1)
+    if (live & ((off < -1) | (at + n > starts[j + 1]))).any():
+        raise ValueError(f"a row out of range of its buffer (buffers of "
+                         f"{sizes.tolist()} bytes)")
+    return np.where(live, ptrs[j] + at - starts[j], -1)
+
+
+def stripe_tables(coeffs, patterns: np.ndarray, src_addr: np.ndarray,
+                  dst_addr: np.ndarray,
+                  base: int) -> tuple[np.ndarray, np.ndarray]:
+    """The two tables of a `gf256_reconstruct_stripes` launch from `base`
+    (the kernel's one base address): `cols` (P, fmax, k, 8) uint32, each
+    pattern's column words (zero past its f outputs), and `rec` (S, k +
+    fmax + 1) int64, each stripe's source rows' and destination rows'
+    byte offsets from `base` (-1 past its f) and its pattern."""
+    fmax = dst_addr.shape[1]
+    k = src_addr.shape[1]
+    cols = np.zeros((len(coeffs), fmax, k, 8), dtype=np.uint32)
+    for p, coeff in enumerate(coeffs):
+        cols[p, : coeff.shape[0]] = coeff_to_columns(coeff)
+    rec = np.concatenate([src_addr - base,
+                          np.where(dst_addr >= 0, dst_addr - base, -1),
+                          patterns[:, None]], axis=1)
+    return cols, np.ascontiguousarray(rec, dtype=np.int64)
+
+
+def stripe_base(bufs: list) -> int:
+    """The base address of a launch: the lowest of the buffers'."""
+    return min(t.data_ptr() for t in bufs if t.numel())
+
+
+def _check_stripes(coeffs, patterns, bufs, src_off, dst_off, n):
+    """The host tables as numpy arrays and the rows' addresses, checked;
+    raises on what the kernel does not take."""
+    coeffs = [_check_coeff(c, 2) for c in coeffs]
+    patterns = np.asarray(patterns, dtype=np.int64)
+    src_off = np.asarray(src_off, dtype=np.int64)
+    dst_off = np.asarray(dst_off, dtype=np.int64)
+    if patterns.ndim != 1 or src_off.ndim != 2 or dst_off.ndim != 2:
+        raise ValueError("patterns must be (S,), src_off (S, k), dst_off "
+                         "(S, fmax)")
+    s, k = src_off.shape
+    fmax = dst_off.shape[1]
+    if patterns.shape[0] != s or dst_off.shape[0] != s:
+        raise ValueError(f"{patterns.shape[0]} patterns, {s} source rows "
+                         f"and {dst_off.shape[0]} destination rows")
+    if n < 0:
+        raise ValueError(f"row length {n}")
+    fs = np.array([c.shape[0] for c in coeffs], dtype=np.int64)
+    for c in coeffs:
+        if c.shape[1] != k:
+            raise ValueError(f"coefficients {c.shape} for {k} source rows")
+    if (fs < 1).any() or (fs > fmax).any():
+        raise ValueError(f"a pattern repairs {fs.tolist()} rows; each must "
+                         f"be 1 to {fmax} (the destination slots)")
+    if ((patterns < 0) | (patterns >= len(coeffs))).any():
+        raise ValueError(f"a pattern out of range [0, {len(coeffs)})")
+    if s == 0 or n == 0:
+        return coeffs, patterns, src_off, dst_off, None, None
+    live = np.arange(fmax)[None, :] < fs[patterns][:, None]
+    if (dst_off[~live] != -1).any():
+        raise ValueError("destination slots past a pattern's outputs "
+                         "must be -1")
+    if (src_off < 0).any() or (dst_off[live] < 0).any():
+        raise ValueError("a negative row offset")
+    src_addr = row_addresses(bufs, src_off, n)
+    dst_addr = row_addresses(bufs, dst_off, n)
+    rows = np.sort(dst_addr[live])
+    if (np.diff(rows) < n).any():
+        raise ValueError("destination rows overlap")
+    read = np.unique(src_addr)
+    at = np.searchsorted(rows, read)
+    after = np.where(at < rows.size, rows[np.minimum(at, rows.size - 1)],
+                     np.iinfo(np.int64).max)
+    before = np.where(at > 0, rows[np.maximum(at - 1, 0)],
+                      np.iinfo(np.int64).min)
+    if ((after < read + n) | (before > read - n)).any():
+        raise ValueError("a destination row overlaps a source row")
+    return coeffs, patterns, src_off, dst_off, src_addr, dst_addr
+
+
+def gf256_reconstruct_stripes(coeffs, patterns, bufs, src_off, dst_off,
+                              n: int) -> list:
+    """Every stripe's reconstruct in one launch, rows read and written
+    where they lie: for stripe s and output o < f of its pattern p =
+    patterns[s],
+
+        row(dst_off[s, o]) = XOR_i coeffs[p][o, i] (*) row(src_off[s, i])
+
+    where row(x) is the n bytes at offset x of the byte space `bufs`: a
+    sequence of 1-D uint8 tensors on one device taken as their
+    concatenation in order (`byte_space`). `coeffs` are P host uint8
+    (f_p, k) arrays; `patterns` (S,), `src_off` (S, k) and `dst_off`
+    (S, fmax) host integer tables (-1 in `dst_off` past a pattern's f). A
+    row lies inside one tensor; destination rows overlap neither each
+    other nor a source row. Returns the buffers. CUDA tensors launch the
+    kernel in `csrc/gf256_matmul.cu` (its tables, the rows' byte offsets
+    from the lowest buffer's address, copied to the card once a launch);
+    CPU tensors take `ref.gf256_reconstruct_stripes_ref`. An empty batch
+    does nothing.
+    Each CUDA launch adds one to `gf256_reconstruct_stripes.launches`.
+    """
+    bufs = byte_space(bufs)
+    coeffs, patterns, src_off, dst_off, src_addr, dst_addr = _check_stripes(
+        coeffs, patterns, bufs, src_off, dst_off, n)
+    if patterns.shape[0] == 0 or n == 0:
+        return bufs
+    device = bufs[0].device
+    if device.type == "cpu":
+        return ref.gf256_reconstruct_stripes_ref(coeffs, patterns, bufs,
+                                                 src_off, dst_off, n)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    base = stripe_base(bufs)
+    cols, rec = stripe_tables(coeffs, patterns, src_addr, dst_addr, base)
+    lib = build.load_library().lib
+    with torch.cuda.device(device):
+        cols_d = host_to_device(cols.view(np.int32), device)
+        rec_d = host_to_device(rec, device)
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(lib.gf256_reconstruct_stripes_launch(
+            cols_d.data_ptr(), rec_d.data_ptr(), base, rec.shape[0],
+            src_off.shape[1], dst_off.shape[1], n, stream),
+            "gf256_reconstruct_stripes")
+    gf256_reconstruct_stripes.launches += 1
+    return bufs
+
+
+gf256_reconstruct_stripes.launches = 0

@@ -2,7 +2,8 @@
 
 Each takes and returns uint8 torch tensors on one device. A CUDA tensor
 launches the CUDA kernels (`gf256_matmul_bytes`, `xor_reduce_words`, and
-for the batched data plane `gf256_scale_bytes`, `xor_reduce_groups_words`);
+for the batched data plane `gf256_scale_bytes`, `xor_reduce_groups_words`;
+for the checkpoint load's stripes `gf256_reconstruct_stripes`);
 a CPU tensor takes their plain PyTorch versions through the same wrappers;
 `use_kernel=False` picks the plain byte-domain version explicitly. The
 byte contracts are those of the JAX package's `kernels/ops.py`, and every
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,
+                                              gf256_reconstruct_stripes,
                                               gf256_scale_bytes)
 from repro_torch.kernels.xor_reduce import (as_rows, fold_rows,
                                             xor_reduce_groups_words)
@@ -123,3 +125,17 @@ def rs_encode(parity_coeff: np.ndarray, data_blocks: torch.Tensor) -> torch.Tens
 def rs_reconstruct(repair_coeff: np.ndarray, helper_blocks: torch.Tensor) -> torch.Tensor:
     """(f, k) repair coeffs x (k, nbytes) helpers -> (f, nbytes) lost blocks."""
     return gf256_matmul(repair_coeff, helper_blocks)
+
+
+def rs_reconstruct_stripes(repair_coeffs, patterns, space, helper_off,
+                           out_off, nbytes: int) -> list:
+    """`rs_reconstruct` for a batch of stripes, in one
+    `gf256_reconstruct_stripes` launch: stripe s repairs with pattern p =
+    `patterns[s]`, whose (f, k) coefficients are `repair_coeffs[p]`, from
+    the k helper rows at byte offsets `helper_off[s]` into the f rows at
+    `out_off[s, :f]` (-1 after). Offsets index `space`, a sequence of
+    1-D uint8 tensors taken as their concatenation; rows are `nbytes`
+    long and are read and written in place; returns `space` as a list.
+    An empty batch does nothing."""
+    return gf256_reconstruct_stripes(repair_coeffs, patterns, space,
+                                     helper_off, out_off, nbytes)

@@ -2,8 +2,8 @@
 
 Two *independent* formulations:
   * byte domain — dense `MUL_TABLE` Galois multiply + XOR accumulate, the
-    plain versions of the byte kernels `gf256_matmul_bytes` and
-    `gf256_scale_bytes`,
+    plain versions of the byte kernels `gf256_matmul_bytes`,
+    `gf256_scale_bytes` and `gf256_reconstruct_stripes`,
   * plane domain — the same bit-matrix math as the plane kernels, in
     plain torch.
 The numpy ground truth is `ec.gf256.gf_matmul_np`.
@@ -45,6 +45,29 @@ def gf256_matmul_bytes_ref(coeff: np.ndarray, data: torch.Tensor) -> torch.Tenso
                 acc ^= table[c][idx[i]]
         outs.append(acc)
     return torch.stack(outs)
+
+
+def gf256_reconstruct_stripes_ref(coeffs, patterns: np.ndarray, bufs: list,
+                                  src_off: np.ndarray, dst_off: np.ndarray,
+                                  n: int) -> list:
+    """Plain version of `gf256_reconstruct_stripes`, stripe by stripe: the
+    n-byte rows at `dst_off[s, o]` of the byte space `bufs` (the 1-D uint8
+    tensors' concatenation, in order) = `gf256_matmul_bytes_ref` of
+    pattern `patterns[s]`'s (f, k) coefficients `coeffs[p]` and the k rows
+    at `src_off[s]`, written in place; returns `bufs`."""
+    starts = np.cumsum([0] + [t.numel() for t in bufs])
+
+    def row(off: int) -> torch.Tensor:
+        j = int(np.searchsorted(starts, off, side="right")) - 1
+        return bufs[j][off - starts[j]: off - starts[j] + n]
+
+    for s, p in enumerate(np.asarray(patterns)):
+        coeff = coeffs[p]
+        out = gf256_matmul_bytes_ref(
+            coeff, torch.stack([row(off) for off in src_off[s].tolist()]))
+        for o, off in enumerate(dst_off[s, : coeff.shape[0]].tolist()):
+            row(off).copy_(out[o])
+    return bufs
 
 
 def gf256_matmul_planes_ref(masks: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:

@@ -31,11 +31,15 @@ from repro.train.train_step import TrainConfig as JTrainConfig
 from repro.train.train_step import init_state as jinit_state
 from repro_torch import convert, tree
 from repro_torch.checkpoint import ECCheckpointConfig, ECCheckpointer
+from repro_torch.checkpoint import ec_checkpoint
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import topology
 from repro_torch.core.bandwidth import BandwidthProcess, IngressModel
 from repro_torch.data.pipeline import SyntheticStream
+from repro_torch.ec import stripe as stripe_lib
+from repro_torch.ec.rs import RSCode
+from repro_torch.kernels import ops, ref
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import (TrainConfig, init_state,
                                           make_train_step)
@@ -94,7 +98,7 @@ def test_roundtrip_no_loss(ckpt_env):
     _assert_equal(state, restored)
     assert report.blocks_repaired == 0 and report.sim is None
     assert ck.latest_step() == 7
-    assert set(ck.last_load) == {"read", "repair", "assemble"}
+    assert set(ck.last_load) == {"read", "h2d", "repair", "assemble"}
     assert set(ck.last_save) == {"snapshot", "layout", "encode", "d2h", "crc",
                                  "write"}
 
@@ -121,6 +125,99 @@ def test_too_many_losses_raises(ckpt_env, ref_state, tmp_path):
     with pytest.raises(RuntimeError) as theirs:
         jck.load(jstate, lost_domains=(0, 1, 2))
     assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("lost", [(), (7,), (1, 5), (1, 2), (0, 1)])
+def test_load_repairs_every_stripe_in_one_call(ckpt_env, monkeypatch, lost):
+    """A load that repairs makes one call of the batched reconstruct (on
+    the CPU its plain version) for all its stripes, and none when no data
+    block was lost; `rs_reconstruct` a stripe is never called."""
+    ck, state, _ = ckpt_env
+    ck.save(1, state, wait=True)
+    calls = []
+    batched = ref.gf256_reconstruct_stripes_ref
+
+    def counted(coeffs, patterns, *args):
+        calls.append((len(coeffs), len(patterns)))
+        return batched(coeffs, patterns, *args)
+
+    def per_stripe(*args):
+        raise AssertionError("the load reconstructed a stripe on its own")
+
+    monkeypatch.setattr(ref, "gf256_reconstruct_stripes_ref", counted)
+    monkeypatch.setattr(ops, "rs_reconstruct", per_stripe)
+    restored, report = ck.load(state, lost_domains=lost)
+    _assert_equal(state, restored)
+    if report.stripes_repaired:
+        assert calls == [(calls[0][0], report.stripes_repaired)]
+        assert 1 <= calls[0][0] <= 3
+    else:
+        assert calls == [] and report.blocks_repaired == 0
+
+
+@pytest.mark.parametrize("lost", [(), (1, 5), (0, 1)])
+def test_load_across_windows(ckpt_env, monkeypatch, lost):
+    """A blob held in many windows of three rows (leaves cross them)
+    restores the same bytes, and every window the leaves have passed is
+    let go before the load returns."""
+    ck, state, _ = ckpt_env
+    ck.save(1, state, wait=True)
+    monkeypatch.setattr(ec_checkpoint, "WINDOW_BYTES",
+                        3 * ck.cfg.chunk_bytes)
+    seen = []
+    unflatten = ECCheckpointer._unflatten
+
+    def keep(self, windows, meta, template):
+        seen.append((windows, windows[0].numel(), meta["total_bytes"]))
+        return unflatten(self, windows, meta, template)
+
+    monkeypatch.setattr(ECCheckpointer, "_unflatten", keep)
+    restored, report = ck.load(state, lost_domains=lost)
+    _assert_equal(state, restored)
+    (windows, size, total), = seen
+    assert size == 3 * ck.cfg.chunk_bytes and len(windows) > 10
+    assert all(w is None for w in windows[: total // size])
+    assert (report.blocks_repaired > 0) == bool(lost)
+
+
+@pytest.mark.parametrize("lost", [(3,), (1, 5), (1, 2), (0, 1), (2, 6)])
+def test_spare_rows_are_the_parity_helpers(lost):
+    """A stripe that lost f data blocks reads f parity helpers: the spare
+    rows beside the blob are exactly as many as the blocks repaired, each
+    a surviving parity block of its stripe, in the order the helpers
+    read them."""
+    code = RSCode(6, 4)
+    stripes = stripe_lib.place_stripes(200, code, 8)
+    alive = {(s.stripe_id, b) for s in stripes
+             for b, node in enumerate(s.node_ids) if node not in lost}
+    cb = 64
+    plan = ec_checkpoint.plan_repair(code, stripes, alive, cb)
+    assert len(plan.spare) == plan.blocks > 0
+    assert all(b >= code.k and blk in alive
+               for blk in plan.spare for b in blk[1:])
+    blob = 200 * code.k * cb
+    spare_reads = np.sort(plan.src_off[plan.src_off >= blob])
+    assert spare_reads.tolist() == [blob + j * cb
+                                    for j in range(len(plan.spare))]
+
+
+@pytest.mark.parametrize("lost", [(3, 6, 7), (1, 4, 6), (0, 1, 2)])
+def test_too_many_losses_name_the_reference_stripe(ref_state, tmp_path,
+                                                   monkeypatch, lost):
+    """The first stripe that lost more than n-k blocks is named as the
+    reference names it, and nothing is reconstructed first."""
+    jstate, state = ref_state
+    ours, theirs = _checkpointer(tmp_path / "port"), _jcheckpointer(
+        tmp_path / "ref")
+    ours.save(1, state, wait=True)
+    theirs.save(1, jstate, wait=True)
+    monkeypatch.setattr(ref, "gf256_reconstruct_stripes_ref", None)
+    with pytest.raises(RuntimeError) as got:
+        ours.load(state, lost_domains=lost)
+    with pytest.raises(RuntimeError) as want:
+        theirs.load(jstate, lost_domains=lost)
+    assert str(got.value) == str(want.value)
+    assert not str(got.value).startswith("stripe 0:") or lost == (0, 1, 2)
 
 
 def test_corrupt_domain_detected(ckpt_env):
@@ -202,7 +299,7 @@ def test_files_equal_reference(ref_state, tmp_path, chunk_bytes):
     assert m_ours["dtypes"][-1] == "int32" and "bfloat16" in m_ours["dtypes"]
 
 
-@pytest.mark.parametrize("lost", [(), (3,), (1, 5)])
+@pytest.mark.parametrize("lost", [(), (3,), (1, 5), (1, 2), (0, 1)])
 def test_checkpoints_cross_load(ref_state, tmp_path, lost):
     jstate, state = ref_state
     ours, theirs = _checkpointer(tmp_path / "port"), _jcheckpointer(
