@@ -1,0 +1,12 @@
+"""The simulated event stepping of the plans' rounds (the program's
+`plan.step` spans), over the traced batches, in ms a stripe
+(`portbench/program_spans.py`)."""
+from portbench import program_spans
+
+UNIT, BETTER, SOURCE = "ms", "lower", "program_span"
+LAYER = "planning and lowering"
+MOVES = "repair_p95_ms"
+
+
+def read(run):
+    return program_spans.ms_per_stripe(run, "plan.step")

@@ -31,6 +31,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.plan import Job, RepairPlan, Round, Transfer
 
 _MAX_MASK_NODES = 64
@@ -143,6 +144,7 @@ def _job_fields(jobs: list[Job]) -> dict:
     )
 
 
+@tracing.spanned("plan.convert")
 def compile_plan(plan: RepairPlan) -> PlanArrays:
     """Lower a `RepairPlan` to `PlanArrays` (exact, reversible)."""
     jobs = plan.jobs
@@ -298,6 +300,7 @@ def splice_path(pa: PlanArrays, row: int, path: tuple[int, ...]) -> None:
         pa.num_nodes = max(path) + 1
 
 
+@tracing.spanned("plan.convert")
 def relabel_plan_nodes(pa: PlanArrays, perm: np.ndarray) -> PlanArrays:
     """A copy of `pa` with every node id mapped through `perm`.
 

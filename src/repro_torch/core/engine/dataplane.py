@@ -52,6 +52,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.engine.arrays import PlanArrays, compile_plan
 from repro_torch.core.plan import RepairPlan
 from repro_torch.device import host_to_device, resolve_device
@@ -205,6 +206,7 @@ def _schedule(pas: list[PlanArrays], N: int, S: int
     return pre_rows, steps, occupied
 
 
+@tracing.spanned("dataplane")
 def execute_plans_batch(
     plans: Sequence[PlanArrays | RepairPlan],
     codes: RSCode | Sequence[RSCode],
@@ -257,30 +259,36 @@ def execute_plans_batch(
     S = max(pa.num_jobs for pa in pas) * N
 
     # ---- host: coefficients, then every round's row tables
-    coeffs = _repair_coeffs(pas, codes, block_maps)
-    pre_rows, steps, occupied = _schedule(pas, N, S)
-    pre_coef = [coeffs[b][j] for b, pa in enumerate(pas)
-                for j in range(pa.num_jobs)]
-    # per case, the codeword blocks of its helpers, in `pre_rows` order
-    pre_blocks = [np.concatenate(
-        [block_maps[b][pa.job_helpers[j, :int(pa.job_helpers_len[j])]]
-         for j in range(pa.num_jobs)] or [np.zeros(0, np.int64)])
-        for b, pa in enumerate(pas)]
-    # relays re-send the whole buffer: nbytes per hop of every path
-    bytes_moved = np.array([nbytes * int((pa.t_path_len - 1).sum())
-                            for pa in pas], dtype=np.int64)
+    with tracing.span("dataplane.prepare"):
+        coeffs = _repair_coeffs(pas, codes, block_maps)
+        pre_rows, steps, occupied = _schedule(pas, N, S)
+        pre_coef = [coeffs[b][j] for b, pa in enumerate(pas)
+                    for j in range(pa.num_jobs)]
+        # per case, the codeword blocks of its helpers, in `pre_rows` order
+        pre_blocks = [np.concatenate(
+            [block_maps[b][pa.job_helpers[j, :int(pa.job_helpers_len[j])]]
+             for j in range(pa.num_jobs)] or [np.zeros(0, np.int64)])
+            for b, pa in enumerate(pas)]
+        # relays re-send the whole buffer: nbytes per hop of every path
+        bytes_moved = np.array([nbytes * int((pa.t_path_len - 1).sum())
+                                for pa in pas], dtype=np.int64)
 
     # ---- device: one buffer, rows padded to whole 32-bit words so the
-    # segment fold reads it in place
+    # segment fold reads it in place. The counts are each op's bytes read
+    # plus written, from the shapes.
     width = nbytes + (-nbytes % 4)
     buf = torch.zeros((B * S, width), dtype=torch.uint8, device=dev)
+    tracing.count("dataplane.bytes.fill", buf.numel())
     if pre_rows.size:
         helpers = torch.cat([cws[b][host_to_device(blocks, dev)]
                              for b, blocks in enumerate(pre_blocks)])
+        # each case's gather, then the concatenation
+        tracing.count("dataplane.bytes.gather", 4 * helpers.numel())
         pre = ops.gf256_scale_batch(np.concatenate(pre_coef), helpers,
                                     use_kernel=use_kernel)
         del helpers
         buf[host_to_device(pre_rows, dev), :nbytes] = pre
+        tracing.count("dataplane.bytes.write", 2 * pre.numel())
         del pre
     for step in steps:
         folded = ops.xor_reduce_segments(buf, step.groups,
@@ -288,10 +296,12 @@ def execute_plans_batch(
         # a plain assignment is the whole XOR-scatter: a held destination is
         # already in its group, and the rows are unique (one write per row)
         buf[host_to_device(step.dst_rows, dev)] = folded
+        tracing.count("dataplane.bytes.write", 2 * folded.numel())
 
     # ---- verify every job's requestor buffer against the lost block
     recon: list[dict[int, torch.Tensor]] = [dict() for _ in range(B)]
     same = []
+    verify_bytes = 0
     for b, pa in enumerate(pas):
         for j in range(pa.num_jobs):
             row = b * S + j * N + int(pa.job_requestor[j])
@@ -299,13 +309,20 @@ def execute_plans_batch(
                 got = buf[row, :nbytes].clone()
                 lost = cws[b][int(block_maps[b][pa.job_failed[j]])]
                 same.append((got == lost).all())
+                # the copy (a row read and written), the compare (two rows
+                # read, a bool row written), its reduction (that row read,
+                # one flag written)
+                verify_bytes += 6 * nbytes + 1
             else:
                 got = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
                 same.append(torch.zeros((), dtype=torch.bool, device=dev))
+                verify_bytes += nbytes + 1
             recon[b][int(pa.job_id[j])] = got
+    tracing.count("dataplane.bytes.verify", verify_bytes)
     verified = np.ones(B, dtype=bool)
     if same:
-        ok = torch.stack(same).cpu().numpy()          # one copy to the host
+        with tracing.span("dataplane.wait"):
+            ok = torch.stack(same).cpu().numpy()      # one copy to the host
         case_of = np.repeat(np.arange(B), [pa.num_jobs for pa in pas])
         np.logical_and.at(verified, case_of, ok)
     return BatchExecutionResult(reconstructed=recon, verified=verified,

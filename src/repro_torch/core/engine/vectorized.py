@@ -38,7 +38,9 @@ The numpy steppers here stay numpy on the host, as in the JAX package:
 they are the yardstick the device stepper is held against, and the host
 route for the batches the device stepper declines (non-persistent
 ingress shares, epoch stacks past its memory cap, a capped horizon).
-`device_stepper.COUNTS` counts the batches that took each route.
+`device_stepper.COUNTS` counts the batches that took each route;
+`repro_torch.tracing` times the search, replan, stepping and conversion
+spans of the repair path.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ import time as _time
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.engine.arrays import PlanArrays, decompile, splice_path
 from repro_torch.core.engine.planner_arrays import (lower_schedules_batch,
                                                     msrepair_schedule_batch,
@@ -476,9 +479,10 @@ def _run_ppt_batch(scenarios: list[Scenario],
     num_nodes = max(sc.num_nodes for sc in scenarios)
     preps: list[_PipelinePrep] = []
     for sc in scenarios:
-        tic = _time.perf_counter()
-        tree = build_ppt_tree(sc.make_jobs()[0], sc.bw.matrix_at(0.0))
-        plan_clock = _time.perf_counter() - tic
+        with tracing.span("plan.search"):
+            tic = _time.perf_counter()
+            tree = build_ppt_tree(sc.make_jobs()[0], sc.bw.matrix_at(0.0))
+            plan_clock = _time.perf_counter() - tic
         t_start = pipeline_fill_latency(tree, sc.bw.matrix_at(0.0),
                                         sc.chunk_mb)
         preps.append(_PipelinePrep(tree=tree, t_start=t_start,
@@ -505,8 +509,9 @@ def _run_ppt_batch(scenarios: list[Scenario],
         engine = engine_factory(scenarios, num_nodes, parent, edge_valid)
         while engine is not None:       # grow the epoch horizon on overrun
             try:
-                t_end = engine.execute(child, parent, depth_arr, edge_valid,
-                                       t0)
+                with tracing.span("plan.step"):
+                    t_end = engine.execute(child, parent, depth_arr,
+                                           edge_valid, t0)
                 break
             except device_stepper.EpochHorizonError:
                 engine = engine.grow()  # None once capped -> numpy fallback
@@ -515,11 +520,12 @@ def _run_ppt_batch(scenarios: list[Scenario],
         bb = _BatchBandwidth([sc.bw for sc in scenarios], num_nodes)
         degrade, floor, duplex = _ingress_params(scenarios)
         chunk = _chunk_array(scenarios)
-        t_end = execute_pipeline_batch(
-            child, parent, depth_arr, edge_valid, t0, bb,
-            [sc.ingress for sc in scenarios], chunk, {}, degrade, floor,
-            duplex,
-        )
+        with tracing.span("plan.step"):
+            t_end = execute_pipeline_batch(
+                child, parent, depth_arr, edge_valid, t0, bb,
+                [sc.ingress for sc in scenarios], chunk, {}, degrade, floor,
+                duplex,
+            )
     return [
         SimResult(
             scheme="ppt", total_time=float(t_end[b]),
@@ -609,8 +615,9 @@ def _run_rounds_once(
         # no per-round replanning: the whole plan runs as one device
         # scan over the round axis instead of R host round-trips (and
         # none of the numpy batch prep below is needed)
-        rt_all, t = engine.execute_rounds(hop_all_u, hop_all_v,
-                                          n_hops_all, t)
+        with tracing.span("plan.step"):
+            rt_all, t = engine.execute_rounds(hop_all_u, hop_all_v,
+                                              n_hops_all, t)
         rt[:] = rt_all
         return _round_results(scenarios, schemes, arrays, rounds_of, t, rt,
                               plan_clock, relay_hops, logs, keep_plans)
@@ -647,32 +654,33 @@ def _run_rounds_once(
         if brows.size:
             # in-stepper replan: one batched BMF pass reroutes every
             # replanning row's bottleneck transfers on the live stack
-            tic = _time.perf_counter()
-            if not static_plan_time:
-                bb_plan.refresh(t, bmf_rows)
-            hu, hv, nh = hop_u[brows], hop_v[brows], n_hops[brows]
-            H = hu.shape[2]
-            valid = np.arange(H)[None, None, :] < nh[:, :, None]
-            vb, vt, vh = np.nonzero(valid)
-            used = np.zeros((brows.size, num_nodes), dtype=bool)
-            used[vb, hu[vb, vt, vh]] = True
-            used[vb, hv[vb, vt, vh]] = True
-            avail = idle_base & ~used
-            hu, hv, stats, spliced = optimize_round_batch(
-                hu, hv, nh, bb_plan.stack[brows], chunk[brows], avail,
-                optimize_all=bmf_optimize_all,
-            )
-            if hu.shape[2] > H:     # a relayed path outgrew the hop axis
-                pad = ((0, 0), (0, 0), (0, 0), (0, hu.shape[2] - H))
-                hop_all_u = np.pad(hop_all_u, pad)
-                hop_all_v = np.pad(hop_all_v, pad)
-                hop_u, hop_v = hop_all_u[:, r], hop_all_v[:, r]
-            hop_u[brows] = hu
-            hop_v[brows] = hv
-            n_hops[brows] = nh
-            # batched planning wall-clock is shared: charge each replan
-            # row its share (keeps sweep-level planning totals honest)
-            plan_clock[brows] += (_time.perf_counter() - tic) / brows.size
+            with tracing.span("plan.replan"):
+                tic = _time.perf_counter()
+                if not static_plan_time:
+                    bb_plan.refresh(t, bmf_rows)
+                hu, hv, nh = hop_u[brows], hop_v[brows], n_hops[brows]
+                H = hu.shape[2]
+                valid = np.arange(H)[None, None, :] < nh[:, :, None]
+                vb, vt, vh = np.nonzero(valid)
+                used = np.zeros((brows.size, num_nodes), dtype=bool)
+                used[vb, hu[vb, vt, vh]] = True
+                used[vb, hv[vb, vt, vh]] = True
+                avail = idle_base & ~used
+                hu, hv, stats, spliced = optimize_round_batch(
+                    hu, hv, nh, bb_plan.stack[brows], chunk[brows], avail,
+                    optimize_all=bmf_optimize_all,
+                )
+                if hu.shape[2] > H:     # a relayed path outgrew the hop axis
+                    pad = ((0, 0), (0, 0), (0, 0), (0, hu.shape[2] - H))
+                    hop_all_u = np.pad(hop_all_u, pad)
+                    hop_all_v = np.pad(hop_all_v, pad)
+                    hop_u, hop_v = hop_all_u[:, r], hop_all_v[:, r]
+                hop_u[brows] = hu
+                hop_v[brows] = hv
+                n_hops[brows] = nh
+                # batched planning wall-clock is shared: charge each replan
+                # row its share (keeps sweep-level planning totals honest)
+                plan_clock[brows] += (_time.perf_counter() - tic) / brows.size
             relay_hops[brows] += np.where(nh > 0, nh - 1, 0).sum(axis=1)
             for k in np.nonzero(stats.improved_links)[0]:
                 b = brows[k]
@@ -684,13 +692,14 @@ def _run_rounds_once(
             for k, row, path in spliced:
                 pa = arrays[brows[k]]
                 splice_path(pa, int(pa.round_start[r]) + row, path)
-        if engine is not None:
-            t_end = engine.execute_round(hop_u, hop_v, n_hops, t)
-        else:
-            t_end = execute_round_batch(
-                hop_u, hop_v, n_hops, t, bb, ingresses, chunk,
-                wcache, degrade, floor,
-            )
+        with tracing.span("plan.step"):
+            if engine is not None:
+                t_end = engine.execute_round(hop_u, hop_v, n_hops, t)
+            else:
+                t_end = execute_round_batch(
+                    hop_u, hop_v, n_hops, t, bb, ingresses, chunk,
+                    wcache, degrade, floor,
+                )
         rt[r] = t_end - t
         t = t_end
 
@@ -700,12 +709,16 @@ def _run_rounds_once(
 
 def _round_results(scenarios, schemes, arrays, rounds_of, t, rt, plan_clock,
                    relay_hops, logs, keep_plans) -> list[SimResult]:
+    plans = [None] * len(arrays)
+    if keep_plans:
+        with tracing.span("plan.convert"):
+            plans = [decompile(pa) for pa in arrays]
     return [
         SimResult(
             scheme=schemes[b], total_time=float(t[b]),
             round_times=rt[: rounds_of[b], b].tolist(),
             planning_time=float(plan_clock[b]),
-            plan=decompile(arrays[b]) if keep_plans else None,
+            plan=plans[b],
             relay_hops=int(relay_hops[b]), log=logs[b],
         )
         for b in range(len(scenarios))
@@ -748,8 +761,10 @@ def run_work_vectorized(
     the BMF replan host loop are unchanged). Batches the device stepper
     cannot take (non-persistent ingress shares, epoch stacks past its
     memory cap, a capped horizon) run on the numpy steppers and are
-    counted in `device_stepper.COUNTS`; results are backend-independent
-    either way. Only `backend="device"` reads `device`.
+    counted in `device_stepper.COUNTS` (routing); `repro_torch.tracing`
+    times the search, replan, stepping and conversions (the repair
+    path's spans). Results are backend-independent either way. Only
+    `backend="device"` reads `device`.
     """
     round_factory = ppt_factory = None
     if backend == "device":
@@ -787,9 +802,10 @@ def run_work_vectorized(
     if ms_rows:
         # true batched planning: all MSRepair rows in one lockstep pass
         jobs_list = [work[i][0].make_jobs() for i in ms_rows]
-        tic = _time.perf_counter()
-        scheds = msrepair_schedule_batch(jobs_list)
-        share = (_time.perf_counter() - tic) / len(ms_rows)
+        with tracing.span("plan.search"):
+            tic = _time.perf_counter()
+            scheds = msrepair_schedule_batch(jobs_list)
+            share = (_time.perf_counter() - tic) / len(ms_rows)
         for i, jobs, sched in zip(ms_rows, jobs_list, scheds):
             items[i] = (jobs, sched, {"scheme": "msrepair"})
             clocks[i] = share
@@ -801,13 +817,15 @@ def run_work_vectorized(
         jobs = sc.make_jobs()
         recv_lims[i] = (len(jobs[0].helpers)
                         if scheme == "traditional" else 1)
-        tic = _time.perf_counter()
-        items[i] = schedule_for_scheme(scheme, jobs, random_seed=seed)
-        clocks[i] = _time.perf_counter() - tic
+        with tracing.span("plan.search"):
+            tic = _time.perf_counter()
+            items[i] = schedule_for_scheme(scheme, jobs, random_seed=seed)
+            clocks[i] = _time.perf_counter() - tic
 
-    pas = lower_schedules_batch(
-        [items[i] for i in rows],
-        max_recv_per_round=[recv_lims[i] for i in rows])
+    with tracing.span("plan.convert"):
+        pas = lower_schedules_batch(
+            [items[i] for i in rows],
+            max_recv_per_round=[recv_lims[i] for i in rows])
     prepared = {i: pa for i, pa in zip(rows, pas) if pa is not None}
     fallback = [i for i, pa in zip(rows, pas) if pa is None]
 

@@ -32,6 +32,7 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.simulator import SimResult, run_scheme
 from repro_torch.sim.suite import ScenarioCase, ScenarioSuite
 
@@ -245,6 +246,7 @@ def _resolve_executor(executor: str, cases,
     return "vectorized"
 
 
+@tracing.spanned("plan")
 def run_sweep(
     suite: ScenarioSuite,
     *,
@@ -268,9 +270,12 @@ def run_sweep(
     with the torch device stepper from
     `repro_torch.core.engine.device_stepper` on `device`: `None` is the
     card and raises without one; a batch the stepper declines runs on the
-    numpy steppers, is counted in `device_stepper.COUNTS` and warned of)
-    or "auto" (vectorized: the device stepper is opt-in, see
-    `_resolve_executor`). Output is independent of the executor choice.
+    numpy steppers, is counted in `device_stepper.COUNTS` (routing only)
+    and warned of) or "auto" (vectorized: the device stepper is opt-in,
+    see `_resolve_executor`). Output is independent of the executor
+    choice. The call's time, and that of its search, replan, stepping
+    and conversions, are the `repro_torch.tracing` spans `plan` and its
+    children.
 
     `verify_bytes=k` additionally byte-verifies `k` sampled cases: their
     plans are re-derived and executed over real bytes by the batched
