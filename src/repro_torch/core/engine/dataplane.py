@@ -10,15 +10,22 @@ slot `j * N + v` is node v's buffer for job j; row `b * S + slot` of its
 
 1. **GF(256) premultiply** (init) — every helper chunk of the batch scaled
    by its repair coefficient in one `kernels.ops.gf256_scale_batch` call
-   (one `gf256_scale_bytes` launch), with the coefficients computed
-   batched by `RSCode.repair_coeffs_batch` (one lockstep Gauss-Jordan per
-   code);
+   (one `gf256_scale_bytes` launch), each product written by the kernel
+   straight into its slot's row, with the coefficients computed batched
+   by `RSCode.repair_coeffs_batch` (one lockstep Gauss-Jordan per code);
 2. per round, **gather + segment-XOR** — one `kernels.ops.xor_reduce_segments`
    call (one `xor_reduce_groups_words` launch) reads the round's payload
-   rows straight out of the buffer and folds them per (case, destination)
-   group; a destination that already holds a buffer is one more member of
-   its group, so the fold is the whole XOR-scatter and the result is
-   written back with a plain assignment.
+   rows straight out of the buffer, folds them per (case, destination)
+   group and writes each fold into its destination's row in place; a
+   destination that already holds a buffer is one more member of its
+   group, so the fold is the whole XOR-scatter.
+
+No other op writes the buffer, and it is not zeroed: every row a kernel
+reads was written by a kernel before (the bytes past `nbytes` of a row
+padded to whole words are never compared or returned). In place, no row
+that one group of a round writes may be read by another, which a
+`validate_plan`-clean plan guarantees: no node sends and receives in one
+round (`_schedule` refuses such a plan).
 
 The bytes stay on the device through every round; the host only hands
 the card small index tables (`device.host_to_device`, no synchronisation).
@@ -34,10 +41,10 @@ sources are consumed before any arrival lands (store-and-forward
 two-phase), fan-in arrivals XOR-fold (XOR is associative and commutative,
 so the fold order cannot matter), relays re-send whole buffers
 (`bytes_moved` counts `nbytes * (path_len - 1)` per transfer). Like the
-serial walk, the engine assumes a `validate_plan`-clean plan; the one
-invariant it re-checks is source occupancy — a transfer whose source
-buffer was consumed in an earlier round raises `ValueError` instead of
-moving zeros.
+serial walk, the engine assumes a `validate_plan`-clean plan; it
+re-checks source occupancy — a transfer whose source buffer was consumed
+in an earlier round raises `ValueError` instead of moving zeros — and
+that no slot sends and receives in one round.
 
 `block_of` decouples node ids from codeword positions: the simulator
 convention (node i holds block i) is the identity default, while a
@@ -152,6 +159,12 @@ def _schedule(pas: list[PlanArrays], N: int, S: int
     order, preceded by the destination's own row when it still holds a
     buffer after the consume. Group keys are unique, so the device writes
     each destination row exactly once.
+
+    The kernels fold each round into the buffer in place, so no group may
+    read a row that another group of its round writes: a slot that both
+    sends and receives in one round raises `ValueError`, as
+    `validate_plan` refuses such a plan. Every row a group reads then
+    holds a buffer written by the premultiply or by an earlier round.
     """
     pre_rows = [b * S + j * N
                 + pa.job_helpers[j, :int(pa.job_helpers_len[j])].astype(np.int64)
@@ -194,6 +207,13 @@ def _schedule(pas: list[PlanArrays], N: int, S: int
         starts = np.nonzero(boundary)[0]
         counts = np.diff(np.append(starts, order.size))
         dst_rows = skey[starts]
+        both = np.isin(dst_rows, src_rows)
+        if both.any():
+            bad = int(dst_rows[both][0])
+            raise ValueError(
+                f"round {r}: case {bad // S} node {bad % S % N} of job "
+                f"{bad % S // N} both sends and receives in a round — "
+                "execute_plans_batch requires a validate_plan-clean plan")
         held_dst = occupied[dst_rows]                # dst still holds a buffer
         groups = np.full((starts.size, int((counts + held_dst).max())), -1,
                          dtype=np.int64)
@@ -274,29 +294,25 @@ def execute_plans_batch(
                                 for pa in pas], dtype=np.int64)
 
     # ---- device: one buffer, rows padded to whole 32-bit words so the
-    # segment fold reads it in place. The counts are each op's bytes read
-    # plus written, from the shapes.
+    # segment fold reads it in place. The kernels write its rows where they
+    # lie, and each row is written before any kernel reads it, so it is not
+    # zeroed. The counts are each torch op's bytes read plus written, from
+    # the shapes (the kernels are not counted).
     width = nbytes + (-nbytes % 4)
-    buf = torch.zeros((B * S, width), dtype=torch.uint8, device=dev)
-    tracing.count("dataplane.bytes.fill", buf.numel())
+    buf = torch.empty((B * S, width), dtype=torch.uint8, device=dev)
     if pre_rows.size:
         helpers = torch.cat([cws[b][host_to_device(blocks, dev)]
                              for b, blocks in enumerate(pre_blocks)])
         # each case's gather, then the concatenation
         tracing.count("dataplane.bytes.gather", 4 * helpers.numel())
-        pre = ops.gf256_scale_batch(np.concatenate(pre_coef), helpers,
-                                    use_kernel=use_kernel)
+        ops.gf256_scale_batch(np.concatenate(pre_coef), helpers, out=buf,
+                              out_rows=pre_rows, use_kernel=use_kernel)
         del helpers
-        buf[host_to_device(pre_rows, dev), :nbytes] = pre
-        tracing.count("dataplane.bytes.write", 2 * pre.numel())
-        del pre
     for step in steps:
-        folded = ops.xor_reduce_segments(buf, step.groups,
-                                         use_kernel=use_kernel)
-        # a plain assignment is the whole XOR-scatter: a held destination is
-        # already in its group, and the rows are unique (one write per row)
-        buf[host_to_device(step.dst_rows, dev)] = folded
-        tracing.count("dataplane.bytes.write", 2 * folded.numel())
+        # a held destination is already in its group, so writing the fold
+        # over its row is the whole XOR-scatter
+        ops.xor_reduce_segments(buf, step.groups, out_rows=step.dst_rows,
+                                use_kernel=use_kernel)
 
     # ---- verify every job's requestor buffer against the lost block
     recon: list[dict[int, torch.Tensor]] = [dict() for _ in range(B)]

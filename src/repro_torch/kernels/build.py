@@ -100,11 +100,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.xor_reduce_rows_launch.restype = i32
     lib.gf256_scale_planes_launch.argtypes = [p, p, p, i32, i64, p]
     lib.gf256_scale_planes_launch.restype = i32
-    lib.xor_reduce_groups_launch.argtypes = [p, p, p, i32, i32, i64, p]
+    lib.xor_reduce_groups_launch.argtypes = [p, p, p, p, i32, i32, i64, p]
     lib.xor_reduce_groups_launch.restype = i32
     lib.gf256_matmul_bytes_launch.argtypes = [p, p, p, i32, i32, i64, p]
     lib.gf256_matmul_bytes_launch.restype = i32
-    lib.gf256_scale_bytes_launch.argtypes = [p, p, p, i32, i64, p]
+    lib.gf256_scale_bytes_launch.argtypes = [p, p, p, p, i32, i64, i64, p]
     lib.gf256_scale_bytes_launch.restype = i32
     lib.gf256_reconstruct_stripes_launch.argtypes = [p, p, p, i64, i32,
                                                      i32, i64, p]

@@ -91,9 +91,12 @@
 // rows are not aligned alike, and the ragged head and tail of a row, take a
 // scalar path: 4 bytes a thread, loaded and stored byte by byte, never past
 // n. Coefficients 0 and 1 run the same arithmetic (zeros, a copy); nothing
-// is skipped, since the output is a fresh allocation. For the scale each
+// is skipped, since an output row is written whole. For the scale each
 // block serves one row (its 8 column words), and the alignment is decided
-// per row.
+// per row. The scale's output rows may be named by a table of row indices
+// into an output of any row stride: the batched data plane writes every
+// premultiplied row straight into its row of the repair buffer, so no
+// (M, n) product is made and copied in.
 //
 // ---- The checkpoint load: every stripe's reconstruct in one launch.
 //
@@ -340,24 +343,29 @@ gf256_matmul_bytes_kernel(const uint32_t* __restrict__ cols,
   gf_bytes_rows<MT>(scol, k, in, out + (size_t)o0 * n, rows_out, n, head, n16);
 }
 
-// cols (M, 8) column words, in and out (M, n); blockIdx.x is the row. The
-// row is vectorised when its in and out starts are aligned alike (`vec`).
+// cols (M, 8) column words, in (M, n); blockIdx.x is the row r, whose
+// product goes to row dst[r] of out (null dst: row r), rows `ld` bytes
+// apart. The row is vectorised when its in and out starts are aligned
+// alike.
 __global__ void __launch_bounds__(kThreads)
 gf256_scale_bytes_kernel(const uint32_t* __restrict__ cols,
                          const uint8_t* __restrict__ in,
-                         uint8_t* __restrict__ out, long long n, int vec) {
+                         const long long* __restrict__ dst,
+                         uint8_t* __restrict__ out, long long n,
+                         long long ld) {
   __shared__ __align__(16) uint32_t scol[8];
   const int r = blockIdx.x;
   if (threadIdx.x < 8) scol[threadIdx.x] = cols[(size_t)r * 8 + threadIdx.x];
   __syncthreads();
   const uint8_t* row_in = in + (size_t)r * n;
+  uint8_t* row_out = out + (size_t)(dst ? dst[r] : r) * ld;
   long long head = n, n16 = 0;
-  if (vec) {
+  if ((uintptr_t)row_in % 16 == (uintptr_t)row_out % 16) {
     head = (16 - (long long)((uintptr_t)row_in % 16)) % 16;
     if (head > n) head = n;
     n16 = (n - head) / 16;
   }
-  gf_bytes_rows<1>(scol, 1, row_in, out + (size_t)r * n, 1, n, head, n16);
+  gf_bytes_rows<1>(scol, 1, row_in, row_out, 1, n, head, n16);
 }
 
 constexpr int kLoadBatch = 4;      // inputs whose loads a thread issues together
@@ -560,17 +568,20 @@ extern "C" int gf256_matmul_bytes_launch(const void* cols, const void* in,
   }
 }
 
+// dst: null (row r of the product to out + r * ld) or M row indices of
+// out; out rows are ld >= n bytes apart and overlap no row of in.
 extern "C" int gf256_scale_bytes_launch(const void* cols, const void* in,
-                                        void* out, int M, long long n,
+                                        const void* dst, void* out, int M,
+                                        long long n, long long ld,
                                         void* stream) {
-  if (M <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const int vec = (uintptr_t)in % 16 == (uintptr_t)out % 16;
+  if (M <= 0 || n <= 0 || ld < n) return (int)cudaErrorInvalidValue;
   // a row's items: n / 16 vectors and at most 8 scalar groups; a row that
   // is not vectorised walks its n / 4 groups with the same grid
   const long long blocks = (n / 16 + 8 + kThreads - 1) / kThreads;
   dim3 grid((unsigned)M, (unsigned)(blocks < kMaxGridY ? blocks : kMaxGridY));
   gf256_scale_bytes_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)cols, (const uint8_t*)in, (uint8_t*)out, n, vec);
+      (const uint32_t*)cols, (const uint8_t*)in, (const long long*)dst,
+      (uint8_t*)out, n, ld);
   return (int)cudaGetLastError();
 }
 

@@ -51,11 +51,23 @@
 // passes its whole (B*S, W) buffer and the round's table, so the dense
 // (G, Kmax, W) copy the JAX package gathers first is never made. Bound by
 // device memory: 4 * W * (rows referenced + G) bytes.
+// With a destination table dst (G,), group g's fold goes to row dst[g] of
+// out instead of row g, and out may be the words themselves: the data
+// plane folds each round into its buffer in place. So `in` and `out` may
+// alias (no __restrict__). A destination row may be a member of its own
+// group (a thread reads word j of every member before it writes word j),
+// but never of another group: the host guarantees that.
 // Design: blockIdx.y walks the groups, blockIdx.x and a grid-stride loop
 // the words of a row; every thread of a block reads the same index
 // (a broadcast from L1) and XORs the rows it names into registers, 16-byte
-// `uint4` loads when the rows allow it, else single words. The x extent is
-// chosen so that about 8 blocks per SM are in flight over all groups.
+// `uint4` loads when the rows allow it, else single words, two units of
+// the row a pass (all loads before the stores). The x extent is chosen so
+// that about 8 blocks per SM are in flight over all groups. On an H100,
+// over the round tables of the benchmark's two cells at 128 MiB rows,
+// folding in place one unit a pass ran at 80-82 % of the byte bound, the
+// same with __restrict__, and the earlier kernel into a fresh output at
+// 85-87 %; two units a pass in place at 85-88 %, four 85-87 %, streaming
+// loads and stores (__ldcs / __stcs) added nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +76,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
 constexpr int kMaxRows = 16;     // rows a launch folds: KMAX in xor_reduce.py
+constexpr int kUnits = 2;        // units of a row a thread of the grouped fold
+                                 // takes a pass
 
 int sm_count() {
   int dev = 0, sms = 132;
@@ -80,37 +94,48 @@ __device__ __forceinline__ uint32_t xor_of(const uint32_t a, const uint32_t b) {
   return a ^ b;
 }
 
-// V is uint4 (n = W / 4 vectors per row) or uint32_t (n = W words per row)
+// V is uint4 (n = W / 4 vectors per row) or uint32_t (n = W words per row);
+// dst (G,) the output row of each group, or null for row g. A thread owns
+// the units of a row at its index mod the grid's width and takes kUnits
+// of them a pass, issuing every load before its first store.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-xor_reduce_groups_gather(const V* __restrict__ in,
-                         const long long* __restrict__ groups,
-                         V* __restrict__ out, int G, int K, long long n) {
+xor_reduce_groups_gather(const V* in, const long long* __restrict__ groups,
+                         const long long* __restrict__ dst, V* out, int G,
+                         int K, long long n) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (int g = blockIdx.y; g < G; g += gridDim.y) {
     const long long* row = groups + (size_t)g * K;
+    V* to = out + (size_t)(dst ? __ldg(dst + g) : g) * n;
     for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         j < n; j += stride) {
-      V acc = {};
+         j < n; j += kUnits * stride) {
+      V acc[kUnits] = {};
       for (int i = 0; i < K; ++i) {
         const long long r = __ldg(row + i);
-        if (r >= 0) acc = xor_of(acc, in[(size_t)r * n + j]);
+        if (r < 0) continue;
+        const V* src = in + (size_t)r * n;
+#pragma unroll
+        for (int u = 0; u < kUnits; ++u)
+          if (j + u * stride < n)
+            acc[u] = xor_of(acc[u], src[j + u * stride]);
       }
-      out[(size_t)g * n + j] = acc;
+#pragma unroll
+      for (int u = 0; u < kUnits; ++u)
+        if (j + u * stride < n) to[j + u * stride] = acc[u];
     }
   }
 }
 
 template <typename V>
-void launch_groups(const V* in, const long long* groups, V* out, int G, int K,
-                   long long n, cudaStream_t stream) {
+void launch_groups(const V* in, const long long* groups, const long long* dst,
+                   V* out, int G, int K, long long n, cudaStream_t stream) {
   const int gy = G < kMaxGridY ? G : kMaxGridY;
   const long long want = (n + kThreads - 1) / kThreads;
   long long gx = (long long)sm_count() * 8 / gy;
   if (gx < 1) gx = 1;
   if (gx > want) gx = want;
   xor_reduce_groups_gather<V><<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0,
-                                stream>>>(in, groups, out, G, K, n);
+                                stream>>>(in, groups, dst, out, G, K, n);
 }
 
 __device__ __forceinline__ uint8_t xor_of(const uint8_t a, const uint8_t b) {
@@ -211,18 +236,22 @@ extern "C" int xor_reduce_rows_launch(const void* const* rows, int k,
   return launch_rows<uint8_t>(ptrs, k, y, n, head, units, s);
 }
 
+// dst: null (group g to row g of out) or G row indices of out; out may be
+// words itself (see xor_reduce_groups_gather)
 extern "C" int xor_reduce_groups_launch(const void* words, const void* groups,
-                                        void* out, int G, int K, long long W,
-                                        void* stream) {
+                                        const void* dst, void* out, int G,
+                                        int K, long long W, void* stream) {
   if (G <= 0 || K < 0 || W <= 0) return (int)cudaErrorInvalidValue;
   const bool vec = (W % 4 == 0) && ((uintptr_t)words % 16 == 0) &&
                    ((uintptr_t)out % 16 == 0);
+  const long long* g = (const long long*)groups;
+  const long long* d = (const long long*)dst;
   if (vec) {
-    launch_groups((const uint4*)words, (const long long*)groups, (uint4*)out,
-                  G, K, W / 4, (cudaStream_t)stream);
+    launch_groups((const uint4*)words, g, d, (uint4*)out, G, K, W / 4,
+                  (cudaStream_t)stream);
   } else {
-    launch_groups((const uint32_t*)words, (const long long*)groups,
-                  (uint32_t*)out, G, K, W, (cudaStream_t)stream);
+    launch_groups((const uint32_t*)words, g, d, (uint32_t*)out, G, K, W,
+                  (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -145,19 +145,6 @@ def _check_rows(data: torch.Tensor) -> None:
         raise ValueError(f"data must be (rows, nbytes), got {tuple(data.shape)}")
 
 
-def _launch(name: str, data: torch.Tensor, columns: np.ndarray,
-            out: torch.Tensor, *shape: int) -> None:
-    """Copy the column words to the card and launch `name` on the current
-    stream; `data` and `out` are contiguous uint8 tensors on it."""
-    lib = build.load_library().lib
-    with torch.cuda.device(data.device):
-        cols = host_to_device(columns.view(np.int32), data.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check_launch(getattr(lib, name + "_launch")(
-            cols.data_ptr(), data.data_ptr(), out.data_ptr(), *shape,
-            stream), name)
-
-
 def gf256_matmul_bytes(coeff: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     """(m, k) host uint8 coefficients x (k, nbytes) uint8 -> (m, nbytes).
 
@@ -184,7 +171,14 @@ def gf256_matmul_bytes(coeff: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.uint8, device=data.device)
     if m == 0 or n == 0:
         return out
-    _launch("gf256_matmul_bytes", data, coeff_to_columns(coeff), out, m, k, n)
+    lib = build.load_library().lib
+    with torch.cuda.device(data.device):
+        cols = host_to_device(coeff_to_columns(coeff).view(np.int32),
+                              data.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check_launch(lib.gf256_matmul_bytes_launch(
+            cols.data_ptr(), data.data_ptr(), out.data_ptr(), m, k, n,
+            stream), "gf256_matmul_bytes")
     gf256_matmul_bytes.launches += 1
     return out
 
@@ -192,30 +186,90 @@ def gf256_matmul_bytes(coeff: np.ndarray, data: torch.Tensor) -> torch.Tensor:
 gf256_matmul_bytes.launches = 0
 
 
-def gf256_scale_bytes(coeffs: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+def _out_table(out, out_rows, data: torch.Tensor) -> np.ndarray:
+    """`out_rows` as a host (M,) int64 table of distinct rows of `out`
+    that can take `data`'s M rows (see `gf256_scale_bytes`); raises
+    ValueError otherwise."""
+    if out is None or out_rows is None:
+        raise ValueError("out and out_rows go together")
+    _check_rows(out)
+    if out.device != data.device:
+        raise ValueError(f"out on {out.device}, data on {data.device}")
+    if not out.is_contiguous() or out.shape[1] < data.shape[1]:
+        raise ValueError(f"out must be contiguous rows of at least "
+                         f"{data.shape[1]} bytes, got {tuple(out.shape)}")
+    if (data.numel() and out.numel() and data.untyped_storage().data_ptr()
+            == out.untyped_storage().data_ptr()):
+        raise ValueError("data must not be a view of out")
+    table = np.ascontiguousarray(np.asarray(out_rows), dtype=np.int64)
+    m = data.shape[0]
+    if table.shape != (m,):
+        raise ValueError(f"out_rows must be ({m},), got {table.shape}")
+    if m and (table.min() < 0 or table.max() >= out.shape[0]):
+        raise ValueError(f"out_rows outside [0, {out.shape[0]})")
+    if np.unique(table).size != m:
+        raise ValueError("out_rows repeat a row")
+    return table
+
+
+def scale_into_rows(coeffs: np.ndarray, data: torch.Tensor, out: torch.Tensor,
+                    out_rows) -> torch.Tensor:
+    """Plain version of `gf256_scale_bytes` with `out`: the product of
+    `ref.gf256_scale_batch_ref` index-written into rows `out_rows` of `out`
+    (checked as there), on any device. Returns `out`."""
+    table = _out_table(out, out_rows, data)
+    out[host_to_device(table, out.device), :data.shape[1]] = (
+        ref.gf256_scale_batch_ref(coeffs, data))
+    return out
+
+
+def gf256_scale_bytes(coeffs: np.ndarray, data: torch.Tensor,
+                      out: torch.Tensor | None = None,
+                      out_rows=None) -> torch.Tensor:
     """(M,) host uint8 coefficients x (M, nbytes) uint8 -> (M, nbytes):
     row r scaled by its own coefficient `coeffs[r]`.
 
-    The batched premultiply. A CUDA tensor must be contiguous and launches
-    the kernel in `csrc/gf256_matmul.cu`; a CPU tensor takes
-    `ref.gf256_scale_batch_ref`. Each CUDA launch adds one to
-    `gf256_scale_bytes.launches`.
+    The batched premultiply. Given `out` (contiguous uint8 rows of at least
+    nbytes, not sharing `data`'s memory) and `out_rows` (M distinct host
+    row indices), row r of the product is written into the first nbytes of
+    row `out_rows[r]` of `out` instead, and `out` is returned: no product
+    tensor is made. A CUDA tensor must be contiguous and launches the
+    kernel in `csrc/gf256_matmul.cu` (with `out`, its column words and row
+    table copied to the card in one piece); a CPU tensor takes
+    `ref.gf256_scale_batch_ref` (and `scale_into_rows` with `out`). Each
+    CUDA launch adds one to `gf256_scale_bytes.launches`.
     """
     coeffs = _check_coeff(coeffs, 1)
     _check_rows(data)
-    if data.shape[0] != coeffs.shape[0]:
-        raise ValueError(f"{coeffs.shape[0]} coeffs for {data.shape[0]} rows")
+    m, n = data.shape
+    if m != coeffs.shape[0]:
+        raise ValueError(f"{coeffs.shape[0]} coeffs for {m} rows")
     if data.device.type == "cpu":
-        return ref.gf256_scale_batch_ref(coeffs, data)
+        if out is None and out_rows is None:
+            return ref.gf256_scale_batch_ref(coeffs, data)
+        return scale_into_rows(coeffs, data, out, out_rows)
+    table = None
+    if out is not None or out_rows is not None:
+        table = _out_table(out, out_rows, data)
     if data.device.type != "cuda":
         raise ValueError(f"no kernel for device {data.device}")
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
-    out = torch.empty_like(data)
+    if out is None:
+        out = torch.empty_like(data)
     if data.numel() == 0:
         return out
-    _launch("gf256_scale_bytes", data, coeff_to_columns(coeffs), out,
-            data.shape[0], data.shape[1])
+    cols = coeff_to_columns(coeffs).view(np.int64)              # (M, 4)
+    host = cols.ravel() if table is None else np.concatenate(
+        [cols.ravel(), table])
+    lib = build.load_library().lib
+    with torch.cuda.device(data.device):
+        tables = host_to_device(host, data.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        dst = None if table is None else tables.data_ptr() + cols.nbytes
+        build.check_launch(lib.gf256_scale_bytes_launch(
+            tables.data_ptr(), data.data_ptr(), dst, out.data_ptr(), m, n,
+            out.shape[1], stream), "gf256_scale_bytes")
     gf256_scale_bytes.launches += 1
     return out
 

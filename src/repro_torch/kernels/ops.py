@@ -20,8 +20,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.gf256_matmul import (gf256_matmul_bytes,
                                               gf256_reconstruct_stripes,
-                                              gf256_scale_bytes)
-from repro_torch.kernels.xor_reduce import (as_rows, fold_rows,
+                                              gf256_scale_bytes,
+                                              scale_into_rows)
+from repro_torch.kernels.xor_reduce import (as_rows, fold_into_rows,
+                                            fold_rows,
                                             xor_reduce_groups_words)
 
 
@@ -70,6 +72,8 @@ def gf256_scale_batch(
     coeffs: np.ndarray,
     data: torch.Tensor,
     *,
+    out: torch.Tensor | None = None,
+    out_rows=None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """(M,) uint8 coeffs x (M, nbytes) uint8 -> (M, nbytes): row i scaled
@@ -79,20 +83,29 @@ def gf256_scale_batch(
     chunk of a plan batch, one `gf256_scale_bytes` launch with one block
     row per chunk. `coeffs` is a host array (it parametrizes the column
     words). A `data` view that is not contiguous is copied once first.
+    With `out` (contiguous uint8 rows of at least nbytes, not sharing
+    `data`'s memory) and `out_rows` ((M,) distinct host row indices), row
+    i of the product goes into row `out_rows[i]` of `out`, which is
+    returned, and no (M, nbytes) product is made.
     """
     _check_bytes(data, "data")
     coeffs = np.asarray(coeffs, dtype=np.uint8).reshape(-1)
     if coeffs.size != data.shape[0]:
         raise ValueError(f"{coeffs.size} coeffs for {data.shape[0]} rows")
-    if coeffs.size == 0 or not use_kernel:
-        return ref.gf256_scale_batch_ref(coeffs, data)
-    return gf256_scale_bytes(coeffs, data.contiguous())
+    if out is None and out_rows is None:
+        if coeffs.size == 0 or not use_kernel:
+            return ref.gf256_scale_batch_ref(coeffs, data)
+        return gf256_scale_bytes(coeffs, data.contiguous())
+    if use_kernel:
+        return gf256_scale_bytes(coeffs, data.contiguous(), out, out_rows)
+    return scale_into_rows(coeffs, data, out, out_rows)
 
 
 def xor_reduce_segments(
     chunks: torch.Tensor,
     groups: np.ndarray,
     *,
+    out_rows=None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """(T, nbytes) uint8 chunks + (G, Kmax) host row-index groups (-1
@@ -103,18 +116,32 @@ def xor_reduce_segments(
     gathers and folds every group on the card; index -1 reads zero, the
     XOR identity. With `nbytes` a multiple of 4 the chunks are read in
     place; otherwise they are first padded to whole words (a copy).
+    With `out_rows` ((G,) host row indices), group g's fold is written
+    into row `out_rows[g]` of `chunks` itself, which is returned: a
+    destination may be a member of its own group, never of another.
+    `chunks` must then be contiguous rows of whole 32-bit words (raises
+    ValueError otherwise), which the kernel writes where they lie.
     """
     _check_bytes(chunks, "chunks")
     groups = np.asarray(groups, dtype=np.int64)
-    if groups.shape[0] == 0 or not use_kernel:
-        return ref.xor_reduce_segments_ref(chunks, groups)
     nbytes = chunks.shape[-1]
     pad = -nbytes % 4
-    if pad:
-        chunks = torch.nn.functional.pad(chunks, (0, pad))
-    words = chunks.contiguous().view(torch.int32)          # (T, W)
-    out = xor_reduce_groups_words(words, groups)
-    return out.view(torch.uint8)[:, :nbytes]
+    if out_rows is not None:
+        if pad or not chunks.is_contiguous():
+            raise ValueError("out_rows needs contiguous chunks of whole "
+                             f"32-bit words, got {tuple(chunks.shape)}")
+        words = chunks.view(torch.int32)
+        if use_kernel:
+            xor_reduce_groups_words(words, groups, out_rows)
+        else:
+            fold_into_rows(words, groups, out_rows)
+        return chunks
+    if not use_kernel or groups.shape[0] == 0:
+        return ref.xor_reduce_segments_ref(chunks, groups)
+    words = torch.nn.functional.pad(chunks, (0, pad)) if pad else chunks
+    folded = xor_reduce_groups_words(
+        words.contiguous().view(torch.int32), groups)       # (G, W)
+    return folded.view(torch.uint8)[:, :nbytes]
 
 
 def rs_encode(parity_coeff: np.ndarray, data_blocks: torch.Tensor) -> torch.Tensor:

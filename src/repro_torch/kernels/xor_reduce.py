@@ -112,7 +112,45 @@ def xor_reduce_words(words) -> torch.Tensor:
 xor_reduce_words.launches = 0
 
 
-def xor_reduce_groups_words(words: torch.Tensor, groups=None) -> torch.Tensor:
+def in_place_groups(groups: np.ndarray, out_rows, rows: int) -> np.ndarray:
+    """`out_rows` as the (G,) destination table of an in-place grouped
+    fold over `rows` rows, checked: distinct rows in range, none a member
+    of another group (a destination may be a member of its own). Raises
+    ValueError."""
+    table = np.ascontiguousarray(np.asarray(out_rows), dtype=np.int64)
+    n_groups = groups.shape[0]
+    if table.shape != (n_groups,):
+        raise ValueError(f"out_rows must be ({n_groups},), got {table.shape}")
+    if n_groups == 0:
+        return table
+    if table.min() < 0 or table.max() >= rows:
+        raise ValueError(f"out_rows outside [0, {rows})")
+    order = np.argsort(table)
+    ordered = table[order]
+    if (np.diff(ordered) == 0).any():
+        raise ValueError("out_rows repeat a row")
+    gid, col = np.nonzero(groups >= 0)
+    read = groups[gid, col]
+    at = np.minimum(np.searchsorted(ordered, read), n_groups - 1)
+    if ((ordered[at] == read) & (order[at] != gid)).any():
+        raise ValueError("a group reads a row that another group writes")
+    return table
+
+
+def fold_into_rows(words: torch.Tensor, groups: np.ndarray,
+                   out_rows) -> torch.Tensor:
+    """Plain version of the in-place grouped fold, on any device: each
+    group's XOR (`ref.xor_reduce_groups_words_ref`) index-written into its
+    row `out_rows[g]` of the (T, W) `words`, checked by `in_place_groups`.
+    Returns `words`."""
+    dst = in_place_groups(groups, out_rows, words.shape[0])
+    words[host_to_device(dst, words.device)] = ref.xor_reduce_groups_words_ref(
+        words, host_to_device(groups, words.device))
+    return words
+
+
+def xor_reduce_groups_words(words: torch.Tensor, groups=None,
+                            out_rows=None) -> torch.Tensor:
     """Per-group XOR of 32-bit word rows.
 
     * `xor_reduce_groups_words(words)`: (G, K, W) int32 -> (G, W), XOR over
@@ -120,17 +158,25 @@ def xor_reduce_groups_words(words: torch.Tensor, groups=None) -> torch.Tensor:
     * `xor_reduce_groups_words(words, groups)`: (T, W) int32 words and a
       (G, Kmax) host row-index table (numpy or CPU tensor, -1 pads) ->
       (G, W), the XOR of the rows each group names. The kernel gathers the
-      rows itself, so no dense (G, Kmax, W) copy is made.
+      rows itself, so no dense (G, Kmax, W) copy is made;
+    * `xor_reduce_groups_words(words, groups, out_rows)`: the same folds
+      written in place, group g's into row `out_rows[g]` of `words`, which
+      is returned. A destination row may be a member of its own group but
+      of no other (`in_place_groups` checks it).
 
-    The index table is checked on the host and copied to the card without
-    a synchronisation. A CUDA tensor launches the kernel in
+    The index tables are checked on the host and copied to the card in one
+    piece, without a synchronisation. A CUDA tensor launches the kernel in
     `csrc/xor_reduce.cu` (the first form on the (G*K, W) view with the
-    identity table); a CPU tensor takes `ref.xor_reduce_groups_words_ref`.
-    Each CUDA launch adds one to `xor_reduce_groups_words.launches`.
+    identity table); a CPU tensor takes `ref.xor_reduce_groups_words_ref`
+    (`fold_into_rows` in place). Each CUDA launch adds one to
+    `xor_reduce_groups_words.launches`.
     """
     if words.dtype != torch.int32:
         raise TypeError(f"int32 words expected, got {words.dtype}")
+    dst = None
     if groups is None:
+        if out_rows is not None:
+            raise ValueError("out_rows needs groups")
         if words.dim() != 3 or words.shape[1] == 0:
             raise ValueError(f"words must be (G, K>=1, W), got "
                              f"{tuple(words.shape)}")
@@ -149,23 +195,32 @@ def xor_reduce_groups_words(words: torch.Tensor, groups=None) -> torch.Tensor:
         if table.size and (table.min() < -1 or table.max() >= words.shape[0]):
             raise IndexError(f"groups index rows outside [-1, {words.shape[0]})")
         if words.device.type == "cpu":
-            return ref.xor_reduce_groups_words_ref(words, torch.from_numpy(table))
+            if out_rows is not None:
+                return fold_into_rows(words, table, out_rows)
+            return ref.xor_reduce_groups_words_ref(words,
+                                                   torch.from_numpy(table))
+        if out_rows is not None:
+            dst = in_place_groups(table, out_rows, words.shape[0])
     if words.device.type != "cuda":
         raise ValueError(f"no kernel for device {words.device}")
     if not words.is_contiguous():
         raise ValueError("words must be contiguous")
     n_groups, kmax = table.shape
     w = words.shape[1]
-    out = torch.empty((n_groups, w), dtype=torch.int32, device=words.device)
+    out = (torch.empty((n_groups, w), dtype=torch.int32, device=words.device)
+           if dst is None else words)
     if n_groups == 0 or w == 0:
         return out
+    host = table.ravel() if dst is None else np.concatenate([table.ravel(),
+                                                             dst])
     lib = build.load_library().lib
     with torch.cuda.device(words.device):
-        index = host_to_device(table, words.device)   # on the current stream
+        index = host_to_device(host, words.device)    # on the current stream
         stream = torch.cuda.current_stream().cuda_stream
+        dst_ptr = None if dst is None else index.data_ptr() + table.nbytes
         build.check_launch(lib.xor_reduce_groups_launch(
-            words.data_ptr(), index.data_ptr(), out.data_ptr(), n_groups,
-            kmax, w, stream), "xor_reduce_groups_words")
+            words.data_ptr(), index.data_ptr(), dst_ptr, out.data_ptr(),
+            n_groups, kmax, w, stream), "xor_reduce_groups_words")
     xor_reduce_groups_words.launches += 1
     return out
 

@@ -44,13 +44,12 @@ Spans
 
 Counters
 --------
-`dataplane.bytes.fill`, `.gather`, `.write` and `.verify`: bytes read and
-written on the device by `execute_plans_batch`'s own torch ops (the
-zeroed buffer; the helper-row gathers and their concatenation; the index
-writes of the premultiplied rows and of each round's folded rows; the
-verify's row copies and compares), computed on the host from the
-tensors' shapes. The premultiply and fold kernels are not counted. A
-count is also kept on the innermost span open when it is made
+`dataplane.bytes.gather` and `.verify`: bytes read and written on the
+device by `execute_plans_batch`'s own torch ops (the helper-row gathers
+and their concatenation; the verify's row copies and compares), computed
+on the host from the tensors' shapes. The premultiply and fold kernels,
+which write the buffer's rows in place (it is not zeroed), are not
+counted. A count is also kept on the innermost span open when it is made
 (`Span.counts`), so the counts of one stretch of work can be told apart.
 """
 from __future__ import annotations

@@ -8,3 +8,11 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "card: needs an NVIDIA card; the test itself skips when none is "
+        "visible (run them on the card with `python3 -m pytest -m card "
+        "tests/test_torch_dataplane_card.py`)")

@@ -181,6 +181,109 @@ def test_ops_xor_reduce_segments_empty_groups(use_kernel, rng):
     assert theirs.shape == (0, 16)
 
 
+# ------------------------------------------ writing the rows where they lie
+# a held destination in its own group (row 2 -> row 2), -1 pads, a K=1
+# group, a destination outside every group (row 7)
+IN_PLACE = np.array([[2, 0, 5, -1],
+                     [4, -1, -1, -1],
+                     [1, 6, 3, -1]])
+IN_PLACE_DST = np.array([2, 7, 1])
+
+
+@pytest.mark.parametrize("nbytes", [1, 100, 4099])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ops_gf256_scale_batch_into_rows(nbytes, use_kernel, rng):
+    """With `out` and `out_rows` the product lands in the named rows of a
+    wider buffer; no other byte of it changes."""
+    coeffs = _coeffs(rng, 5)
+    data = rng.integers(0, 256, size=(5, nbytes), dtype=np.uint8)
+    width = nbytes + 7
+    out = torch.full((9, width), 0xAB, dtype=torch.uint8)
+    rows = np.array([6, 0, 3, 8, 2])
+    got = ops.gf256_scale_batch(coeffs, torch.from_numpy(data), out=out,
+                                out_rows=rows, use_kernel=use_kernel)
+    assert got is out
+    want = np.full((9, width), 0xAB, dtype=np.uint8)
+    want[rows, :nbytes] = jgf256.MUL_TABLE[coeffs[:, None], data]
+    assert np.array_equal(out.numpy(), want)
+    fresh = ops.gf256_scale_batch(coeffs, torch.from_numpy(data),
+                                  use_kernel=use_kernel)
+    assert torch.equal(out[torch.from_numpy(rows), :nbytes], fresh)
+
+
+def test_ops_gf256_scale_batch_into_rows_rejects_bad_tables(rng):
+    data = torch.from_numpy(rng.integers(0, 256, size=(2, 8), dtype=np.uint8))
+    out = torch.zeros((4, 8), dtype=torch.uint8)
+    c = np.ones(2, np.uint8)
+    for use_kernel in (True, False):
+        for rows in ([0, 0], [0, 4], [-1, 1], [0]):
+            with pytest.raises(ValueError):
+                ops.gf256_scale_batch(c, data, out=out, out_rows=rows,
+                                      use_kernel=use_kernel)
+        with pytest.raises(ValueError):           # narrower than the data
+            ops.gf256_scale_batch(c, data, out=out[:, :4].contiguous(),
+                                  out_rows=[0, 1], use_kernel=use_kernel)
+        with pytest.raises(ValueError):           # data inside out
+            ops.gf256_scale_batch(c, out[:2], out=out, out_rows=[2, 3],
+                                  use_kernel=use_kernel)
+    with pytest.raises(ValueError):
+        ops.gf256_scale_batch(c, data, out_rows=[0, 1])
+
+
+@pytest.mark.parametrize("nbytes", [4, 96, 4099])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ops_xor_reduce_segments_in_place(nbytes, use_kernel, rng):
+    """With `out_rows` each group's fold is written over its row of the
+    chunks themselves, rows padded to whole words as the data plane pads
+    them (a ragged `nbytes` too); the other rows keep their bytes."""
+    width = nbytes + (-nbytes % 4)
+    chunks = rng.integers(0, 256, size=(8, width), dtype=np.uint8)
+    want = chunks.copy()
+    for g, row in zip(IN_PLACE, IN_PLACE_DST):
+        want[row] = np.bitwise_xor.reduce(chunks[g[g >= 0]], axis=0)
+    fresh = ops.xor_reduce_segments(torch.from_numpy(chunks[:, :nbytes]),
+                                    IN_PLACE, use_kernel=use_kernel)
+    buf = torch.from_numpy(chunks.copy())
+    got = ops.xor_reduce_segments(buf, IN_PLACE, out_rows=IN_PLACE_DST,
+                                  use_kernel=use_kernel)
+    assert got is buf
+    assert np.array_equal(buf.numpy(), want)
+    assert torch.equal(buf[torch.from_numpy(IN_PLACE_DST), :nbytes], fresh)
+    theirs = np.asarray(jops.xor_reduce_segments(chunks[:, :nbytes], IN_PLACE,
+                                                 use_kernel=False))
+    assert np.array_equal(want[IN_PLACE_DST, :nbytes], theirs)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_ops_xor_reduce_segments_in_place_rejects_bad_tables(use_kernel, rng):
+    chunks = torch.from_numpy(rng.integers(0, 256, size=(8, 16), dtype=np.uint8))
+    before = chunks.clone()
+    for dst in ([2, 7], [2, 2, 1], [2, 7, 8], [2, 7, -1],
+                [2, 6, 1]):                    # row 6 is read by group 2
+        with pytest.raises(ValueError):
+            ops.xor_reduce_segments(chunks, IN_PLACE, out_rows=dst,
+                                    use_kernel=use_kernel)
+    # rows that are not whole words, or not contiguous
+    for bad in (chunks[:, :15], chunks[:, ::2]):
+        with pytest.raises(ValueError, match="whole 32-bit words"):
+            ops.xor_reduce_segments(bad, IN_PLACE, out_rows=IN_PLACE_DST,
+                                    use_kernel=use_kernel)
+    assert torch.equal(chunks, before)
+
+
+def test_xor_reduce_groups_words_in_place(rng):
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, size=(8, 33),
+                                          dtype=np.int64).astype(np.int32))
+    want = words.clone()
+    want[torch.from_numpy(IN_PLACE_DST)] = xor_reduce_groups_words(
+        words, IN_PLACE)
+    assert xor_reduce_groups_words(words, IN_PLACE, IN_PLACE_DST) is words
+    assert torch.equal(words, want)
+    with pytest.raises(ValueError):
+        xor_reduce_groups_words(torch.zeros((2, 3, 4), dtype=torch.int32),
+                                out_rows=[0, 1])
+
+
 def test_plain_versions_agree_with_each_other(rng):
     coeffs = _coeffs(rng, 6)
     data = torch.from_numpy(rng.integers(0, 256, size=(6, 300), dtype=np.uint8))
@@ -209,6 +312,9 @@ def test_cpu_calls_never_launch_or_build(rng, monkeypatch):
     ops.gf256_scale_batch(coeffs, data)
     ops.xor_reduce_segments(data, GROUPS[:, :2] % 4)
     xor_reduce_groups_words(torch.zeros((2, 3, 5), dtype=torch.int32))
+    buf = torch.zeros((6, 100), dtype=torch.uint8)
+    ops.gf256_scale_batch(coeffs, data, out=buf, out_rows=[5, 0, 1, 2])
+    ops.xor_reduce_segments(buf, GROUPS[:1, :2] % 4, out_rows=[4])
     assert [fn.launches for fn in wrappers] == [0, 0, 0, 0]
 
 

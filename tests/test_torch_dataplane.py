@@ -35,7 +35,8 @@ from repro_torch.core.bandwidth import BandwidthProcess, IngressModel
 from repro_torch.core.engine import dataplane
 from repro_torch.core.engine.arrays import (compile_plan, decompile,
                                             relabel_plan_nodes)
-from repro_torch.core.plan import Job, RepairPlan, Round, Transfer
+from repro_torch.core.plan import (Job, RepairPlan, Round, Transfer,
+                                   validate_plan)
 from repro_torch.core.ppt import build_ppt_tree, ppt_round_plan
 from repro_torch.core.simulator import Scenario, run_scheme
 from repro_torch.ec.rs import RSCode
@@ -344,3 +345,118 @@ def test_schedule_keeps_sources_and_destinations_on_the_host():
     held_dst = before[first.dst_rows]
     assert np.array_equal(first.groups[held_dst, 0], first.dst_rows[held_dst])
     assert occupied[int(pa.job_requestor[0])]
+
+
+# ------------------------------------------------ the buffer written in place
+def _assert_in_place_safe(schedule):
+    """Every row a round reads was written before (by the premultiply or an
+    earlier round), each destination row is written once a round, and no
+    row one group writes is read by another group of the same round."""
+    pre_rows, steps, occupied = schedule
+    written = set(pre_rows.tolist())
+    assert len(written) == pre_rows.size
+    for step in steps:
+        assert np.unique(step.dst_rows).size == step.dst_rows.size
+        for g, row in enumerate(step.dst_rows.tolist()):
+            members = step.groups[g][step.groups[g] >= 0].tolist()
+            assert set(members) <= written
+            others = np.delete(step.groups, g, axis=0)
+            assert row not in set(others[others >= 0].tolist())
+            assert 0 <= row < occupied.size
+        written.update(step.dst_rows.tolist())
+
+
+def _send_and_receive_plans(J, R, T, P):
+    """Node 2 sends its own buffer and receives 1's in the same round, so
+    the row it receives into is read by another group: in `crossed` (four
+    nodes) it sends to 3, in `tight` (RS(3,2), three nodes) to 0."""
+    job = J(job_id=0, failed_node=0, requestor=0, helpers=(1, 2, 3))
+    crossed = P(jobs=[job], rounds=[
+        R(transfers=[T(1, 2, 0, frozenset({1})), T(2, 3, 0, frozenset({2}))]),
+        R(transfers=[T(2, 0, 0, frozenset({1})), T(3, 0, 0, frozenset({2, 3}))])])
+    job = J(job_id=0, failed_node=0, requestor=0, helpers=(1, 2))
+    tight = P(jobs=[job], rounds=[
+        R(transfers=[T(1, 2, 0, frozenset({1})), T(2, 0, 0, frozenset({2}))]),
+        R(transfers=[T(2, 0, 0, frozenset({1}))])])
+    return crossed, tight
+
+
+# (n, k, cluster, failure pattern, scheme): the benchmark cells' traffic,
+# RS(9,6) single losses under BMF and RS(14,10) rack pairs under MSRepair
+CELL_TRAFFIC = {"node_loss": (9, 6, 14, "single", "bmf"),
+                "two_node_loss": (14, 10, 16, "rack", "msrepair")}
+
+
+@pytest.mark.parametrize("traffic", sorted(CELL_TRAFFIC))
+def test_schedule_never_writes_a_row_another_group_reads(traffic, rng):
+    """On the cells' draws, placed and relabeled as the benchmark does, at a
+    small chunk size: the in-place invariant holds on every round, and the
+    batch restores every lost block as the serial walk does."""
+    n, k, cluster, pattern, scheme = CELL_TRAFFIC[traffic]
+    code = RSCode(n, k)
+    stripes = place_stripes(4, code, cluster)
+    pas, cws, bmaps = [], [], []
+    for seed in range(4):
+        draw = np.random.default_rng(100 + seed)
+        failed = tuple(int(f) for f in sample_failures(draw, n, k, pattern))
+        sc = Scenario(num_nodes=cluster, code=code, failed=failed,
+                      bw=BandwidthProcess(base=jtopo.heterogeneous_matrix(
+                          cluster, low=3, high=30, seed=seed),
+                          change_interval=2.0, seed=seed, mode="markov"),
+                      ingress=IngressModel(seed=seed), chunk_mb=128.0)
+        plan = run_scheme(sc, scheme, random_seed=seed).plan
+        pas.append(relabel_plan_nodes(compile_plan(plan),
+                                      stripes[seed].perm(cluster)))
+        bmaps.append(stripes[seed].block_map(cluster))
+        cws.append(_codeword(rng, n, k, 258))
+    N = max(pa.num_nodes for pa in pas)
+    S = max(pa.num_jobs for pa in pas) * N
+    _assert_in_place_safe(dataplane._schedule(pas, N, S))
+    for use_kernel in (True, False):
+        got = dataplane.execute_plans_batch(pas, code, cws, block_of=bmaps,
+                                            use_kernel=use_kernel,
+                                            device="cpu")
+        assert got.all_verified
+        for b, pa in enumerate(pas):
+            ser = executor.execute_plan(decompile(pa), code, cws[b],
+                                        block_of=bmaps[b], device="cpu")
+            assert ser.bytes_moved == int(got.bytes_moved[b])
+            for jid, blk in ser.reconstructed.items():
+                assert torch.equal(blk, got.reconstructed[b][jid])
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_send_and_receive_in_one_round_is_refused(which):
+    """The kernels fold a round in place, so a slot that sends and receives
+    in one round would be written by one group while another reads it: the
+    schedule refuses such a plan, as `validate_plan` does."""
+    plan = _send_and_receive_plans(Job, Round, Transfer, RepairPlan)[which]
+    with pytest.raises(ValueError, match="both sends and receives"):
+        validate_plan(plan)
+    n = (4, 3)[which]
+    with pytest.raises(ValueError, match="validate_plan-clean"):
+        dataplane._schedule([compile_plan(plan)], n, n)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_send_and_receive_in_one_round_raises_before_any_byte_moves(which,
+                                                                     rng):
+    from repro_torch import tracing
+
+    plan = _send_and_receive_plans(Job, Round, Transfer, RepairPlan)[which]
+    n, k = ((6, 3), (3, 2))[which]
+    good, _ = _plans(6, 3, (0,), "ppr", seed=2, cluster=9)
+    tracing.disable()
+    tracing.clear()
+    tracing.enable()
+    try:
+        with pytest.raises(ValueError, match="both sends and receives"):
+            dataplane.execute_plans_batch(
+                [good, plan], [RSCode(6, 3), RSCode(n, k)],
+                [_codeword(rng, 6, 3, 64), _codeword(rng, n, k, 64)],
+                block_of=[None, None], device="cpu")
+        counts = tracing.snapshot()[1]
+    finally:
+        tracing.disable()
+        tracing.clear()
+    assert not any(name.startswith("dataplane.bytes.") for name in counts)

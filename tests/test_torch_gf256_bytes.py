@@ -234,8 +234,10 @@ def test_build_binds_the_byte_launchers():
     lib = FakeLib()
     build._bind(lib)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # (cols, in, out, m, k, n, stream) and (cols, in, out, M, n, stream)
+    # (cols, in, out, m, k, n, stream) and (cols, in, dst, out, M, n, ld,
+    # stream)
     assert lib.gf256_matmul_bytes_launch.argtypes == [p, p, p, i32, i32, i64, p]
-    assert lib.gf256_scale_bytes_launch.argtypes == [p, p, p, i32, i64, p]
+    assert lib.gf256_scale_bytes_launch.argtypes == [p, p, p, p, i32, i64, i64,
+                                                     p]
     assert lib.gf256_matmul_bytes_launch.restype is i32
     assert lib.gf256_scale_bytes_launch.restype is i32

@@ -185,15 +185,13 @@ def test_dataplane_spans_and_byte_counts():
     assert root.parent == 0
     for child in ("dataplane.prepare", "dataplane.wait"):
         assert (spans[child].parent, spans[child].root) == (root.id, root.id)
-    # by hand: N = 5 nodes (relay 4 is the highest id), S = 1 job x 5 = 5
-    # slots a case, a (2 x 5, 64) buffer; 3 + 3 helper rows; every round
-    # folds one group a case (G = 2); both requestor rows end held
-    fill = 2 * 5 * 64
+    # by hand: 3 + 3 helper rows gathered; the kernels write the buffer's
+    # rows in place (not counted), so nothing fills or index-writes it; no
+    # node sends and receives in one round, so no spare row; both
+    # requestor rows end held
     gather = 2 * 6 * 64 + 2 * 6 * 64          # the per-case gathers, the cat
-    write = 2 * 6 * 64 + 3 * (2 * 2 * 64)     # premultiplied rows, 3 rounds
     verify = 2 * (2 * 64 + 3 * 64 + 64 + 1)   # copy, compare, reduce
-    want = {"dataplane.bytes.fill": fill, "dataplane.bytes.gather": gather,
-            "dataplane.bytes.write": write, "dataplane.bytes.verify": verify}
+    want = {"dataplane.bytes.gather": gather, "dataplane.bytes.verify": verify}
     assert tracing.snapshot()[1] == want
     assert root.counts == want
     assert out.rounds == 3
