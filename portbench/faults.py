@@ -6,9 +6,11 @@ install none. Each breaks the timed path underneath the harness:
 * `control`: the reference in the data plane's place, repairing each lost
   block from k - 1 of its helpers (the guarantee "restored from k
   surviving blocks" broken);
-* `round_noop`: every round's fold returns its state unchanged (each
-  destination keeps its first row, nothing is folded);
-* `scale_noop`: the premultiply returns the helper rows unscaled;
+* `round_noop`: every round's fold folds nothing: each group's first
+  row is written, as it is, into the group's destination row;
+* `scale_noop`: the premultiply scales every helper row by 1, so the
+  rows it writes are the helper rows unscaled and a restored block is
+  the XOR of its helpers;
 * `half_batch`: half of each batch's stripes are left out, their blocks
   reported as zeros;
 * `flip_byte`: one byte of each restored block is altered where the
@@ -82,11 +84,15 @@ def install(name: str) -> Callable[[], None]:
         "half_batch": (dataplane, "execute_plans_batch", half_batch),
         "flip_byte": (dataplane, "execute_plans_batch", flip_byte),
         "round_noop": (ops, "xor_reduce_segments",
-                       lambda chunks, groups, **kw: chunks[
-                           torch.as_tensor(np.asarray(groups)[:, 0],
-                                           device=chunks.device)]),
+                       lambda chunks, groups, *args, **kw: fold(
+                           chunks, np.ascontiguousarray(np.asarray(groups)[:, :1]),
+                           *args, **kw)),
+        # every argument after the coefficients passes through, so the
+        # fault holds for a premultiply that reads its rows through a table
         "scale_noop": (ops, "gf256_scale_batch",
-                       lambda coeffs, data, **kw: data.clone()),
+                       lambda coeffs, *args, **kw: scale(
+                           np.ones_like(np.asarray(coeffs, np.uint8)), *args,
+                           **kw)),
     }
     module, attr, fn = patches[name]
     setattr(module, attr, fn)

@@ -16,6 +16,30 @@ soon as the last is done. Each batch
 A batch's latency runs from 1 to 5. With `--trace 1` a further stretch
 of batches runs under torch.profiler after the window, and the run
 prints the per-layer metrics in place of the end-to-end ones.
+
+Before the result, a `samples` line gives the window's counts (batches,
+stripes, batches beyond the p95, restored blocks offered and sampled,
+traced batches) and what it says about where the time went
+(`portbench/diagnose.py`); no metric reads it:
+
+* `plan_ms_mean`, `plan_ms_median`: steps 2-3 of a batch (planning and
+  lowering), over its stripes, in ms: the mean and the median over the
+  window's batches.
+* `dataplane_ms_mean`, `dataplane_ms_median`: steps 4-5 (the data plane
+  through the synchronise) a stripe, the same way.
+* `repair_GBps_halves`: `repair_GBps` over the first and the second half
+  of the window's batches, each from its first batch's start to its last
+  batch's end.
+* `gc_full`, `gc_full_s`: full (generation 2) collections of Python's
+  garbage collector inside the window, and their seconds.
+* `gc_young`: the younger generations' collections inside the window.
+* `cpu_affinity`: the CPUs the process may run on, as a list of ranges
+  (`0-7`).
+* `cpus_ran_on`: the CPU the main thread was on when a batch ended
+  (libc's `sched_getcpu`: field 39 of `/proc/thread-self/stat`) and in
+  how many batches.
+* `clocks_sm_MHz`, `temperature_C`: the card's SM clock and temperature
+  (`nvidia-smi`) just after the window; null off the card.
 """
 from __future__ import annotations
 
@@ -31,7 +55,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from portbench import check, faults, guard, inputs, spec, timing, trace, traffic
+from portbench import (check, diagnose, faults, guard, inputs, spec, timing,
+                       trace, traffic)
 from portbench.traffic import STRIPES, TRACED, WARM, WINDOW
 from repro_torch.core.engine import dataplane
 from repro_torch.core.engine.arrays import compile_plan, relabel_plan_nodes
@@ -251,11 +276,14 @@ def main(argv, t0: float) -> int:
     setup_s = time.perf_counter() - t0
     print(json.dumps({"setup_s": setup_s, "parts": setup}), flush=True)
 
+    watch = diagnose.Watch()
     start = time.perf_counter()
     batches = []
     while not batches or batches[-1].end - start < args.seconds:
         batches.append(bench.batch(WINDOW, len(batches)))
+        watch.batch_done()
     window_s = batches[-1].end - start
+    watched = watch.close(device.type)
     traced = (profile_stretch(bench, cell.traffic["traced_batches"])
               if args.trace else None)
     memory_peak = (torch.cuda.max_memory_allocated(device)
@@ -270,7 +298,8 @@ def main(argv, t0: float) -> int:
         "beyond_p95": sum(x > p95 for x in latencies),
         "restored_blocks_sampled": len(bench.sample.jobs),
         "restored_blocks_offered": bench.sample.offered,
-        "traced_batches": len(traced.batches) if traced else 0}}), flush=True)
+        "traced_batches": len(traced.batches) if traced else 0,
+        **diagnose.batches(batches), **watched}}), flush=True)
 
     tic = time.perf_counter()
     if device.type == "cuda":

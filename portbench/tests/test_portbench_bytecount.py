@@ -1,14 +1,18 @@
 """The kernels' byte counts, held to hand-counted plans and to the port's
 own schedule of real plans."""
+import json
+
 import numpy as np
 import pytest
 
-from portbench import bytecount
+from portbench import bytecount, spec
 from repro_torch.core.engine import dataplane
 from repro_torch.core.engine.arrays import compile_plan
 from repro_torch.core.plan import Job, RepairPlan, Round, Transfer
 
 NB = 1000
+CELLS = [w["name"] for w in json.loads(
+    (spec.HERE.parent / "BENCHMARK.json").read_text())["workloads"]]
 
 
 def plan(jobs, rounds):
@@ -56,11 +60,11 @@ def test_two_job_plan():
     assert bytecount.scale_bytes([pa], NB) == 12 * NB
 
 
-@pytest.mark.parametrize("cell", ["rs63_node_loss", "rs104_two_node_loss"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_counts_match_the_ports_schedule(cell):
     """On real plans, the rows the port's `_schedule` folds: each group's
     members read, each group's destination written."""
-    from portbench import harness, spec, traffic
+    from portbench import harness, traffic
 
     bench = harness.Bench(spec.load_cell(cell), 9, __import__("torch").device("cpu"), 64)
     cases = [traffic.draw_case(bench.cfg, bench.trf, 9, traffic.WINDOW, i) for i in range(8)]

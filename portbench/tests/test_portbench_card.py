@@ -1,10 +1,12 @@
-"""On the card: each cell at 1 MiB blocks holds, and its control fails.
+"""On the card: each cell at 1 MiB blocks holds, and its control and
+each fault fail it.
 Run on a machine with a card: `python3 -m pytest -m card portbench/tests`."""
 import json
 
 import pytest
 import torch
 
+from portbench import faults
 from _runs import ROOT, run
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -18,7 +20,7 @@ def card():
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("fault", [None, "control"])
+@pytest.mark.parametrize("fault", [None, *faults.NAMES])
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_on_the_card(card, cell, fault):
     args = ["--workload", cell, "--seed", "2147483999", "--seconds", "2",

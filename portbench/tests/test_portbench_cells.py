@@ -4,8 +4,8 @@ import json
 
 import pytest
 
-from portbench import check
-from _runs import ROOT, cell_args, result
+from portbench import check, diagnose
+from _runs import ROOT, cell_args, result, run
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -41,6 +41,34 @@ def test_cell_traced(cell):
     # off the card the profiler shows no device op: only host numbers
     assert set(res["metrics"]) == want & HOST_METRICS
     assert res["device"]["window_s"] > 0 and "breakdown" not in res
+
+
+SAMPLES = ("batches", "stripes", "beyond_p95", "restored_blocks_sampled",
+           "restored_blocks_offered", "traced_batches", "plan_ms_mean",
+           "plan_ms_median", "dataplane_ms_mean", "dataplane_ms_median",
+           "repair_GBps_halves", "gc_full", "gc_full_s", "gc_young",
+           "cpu_affinity", "cpus_ran_on", "clocks_sm_MHz", "temperature_C")
+
+
+def test_samples_line_says_where_the_time_went():
+    code, out, err = run(cell_args(CELLS[0]))
+    assert code == 0, "\n".join(err[-30:])
+    lines = [json.loads(line) for line in out if line.startswith('{"samples"')]
+    assert len(lines) == 1 and json.loads(out[-1])["correct"] is True
+    samples = lines[0]["samples"]
+    assert tuple(samples) == SAMPLES
+    assert 0 < samples["plan_ms_median"] and 0 < samples["dataplane_ms_median"]
+    assert len(samples["repair_GBps_halves"]) == 2
+    assert all(v > 0 for v in samples["repair_GBps_halves"])
+    assert samples["gc_full"] >= 0 and samples["gc_full_s"] >= 0
+    assert sum(samples["cpus_ran_on"].values()) == samples["batches"]
+    assert samples["clocks_sm_MHz"] is None and samples["temperature_C"] is None
+
+
+def test_cpu_list_round_trip():
+    assert diagnose.cpu_list({0, 1, 2, 3, 8}) == "0-3,8"
+    assert diagnose.cpu_list(set(range(16)) | set(range(32, 48))) == "0-15,32-47"
+    assert diagnose.cpu_list({5}) == "5"
 
 
 def test_same_seed_same_work():
